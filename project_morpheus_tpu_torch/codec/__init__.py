@@ -1,0 +1,6 @@
+"""SNAC codec: audio-token frames -> 24 kHz PCM (decoder and exact stream decoder)."""
+
+from .frames import FRAME_TOKENS, codes_to_tokens, tokens_to_codes
+from .snac_config import SNACConfig
+
+__all__ = ["SNACConfig", "FRAME_TOKENS", "tokens_to_codes", "codes_to_tokens"]

@@ -1,0 +1,145 @@
+"""Int8 weight-only quantization for serving (port of model/quant.py).
+
+A quantized weight is the dict leaf ``{"q": int8 (in, out), "scale": f32
+(out,)}``; ``matmul_maybe_quant`` dispatches on the leaf so the same forward
+code serves both representations.  The products are plain library matmuls,
+as the JAX package leaves them to XLA: weight-only dequant into the
+activation dtype, and ``torch._int_mm`` for the int8 x int8 (w8a8) chunk
+prefill on the card.
+"""
+from __future__ import annotations
+
+from typing import Dict, Union
+
+import torch
+
+QLeaf = Dict[str, torch.Tensor]
+Weight = Union[torch.Tensor, QLeaf]
+
+_QUANT_KEYS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd", "wqkv", "wgu")
+
+
+def is_quantized(w: Weight) -> bool:
+    return isinstance(w, dict) and "q" in w
+
+
+def _quant_2d(w: torch.Tensor) -> QLeaf:
+    wf = w.float()
+    amax = wf.abs().amax(dim=0, keepdim=True)
+    scale = torch.clamp(amax / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
+    return {"q": q, "scale": scale[0]}
+
+
+def quantize_weight(w: torch.Tensor) -> QLeaf:
+    """Symmetric per-output-channel int8 over the contraction axis; stacked
+    (layers, in, out) weights quantize one layer slice at a time."""
+    if w.ndim == 3:
+        parts = [_quant_2d(w[i]) for i in range(w.shape[0])]
+        return {
+            "q": torch.stack([p["q"] for p in parts]),
+            "scale": torch.stack([p["scale"] for p in parts]),
+        }
+    return _quant_2d(w)
+
+
+def matmul_maybe_quant(h: torch.Tensor, w: Weight) -> torch.Tensor:
+    """``h @ w`` for plain and int8 leaves (weight-only dequant)."""
+    if not is_quantized(w):
+        return h @ w
+    y = h @ w["q"].to(h.dtype)
+    return y * w["scale"].to(y.dtype)
+
+
+def _int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int32 product of 2-D int8 matrices.
+
+    On the card this is ``torch._int_mm`` (which wants more than 16 rows:
+    short inputs are zero-padded); on the CPU a float64 product, exact for
+    these sums (< 2**53)."""
+    if a.device.type == "cuda":
+        m = a.shape[0]
+        if m <= 16:
+            a = torch.cat([a, a.new_zeros((32 - m, a.shape[1]))])
+        return torch._int_mm(a, b)[:m]
+    return (a.double() @ b.double()).to(torch.int32)
+
+
+def matmul_w8a8(h: torch.Tensor, w: Weight) -> torch.Tensor:
+    """``h @ w`` with per-token int8 activations and an int8 x int8 product
+    (the chunk-prefill projections); plain weights use the dtype matmul."""
+    if not is_quantized(w):
+        return h @ w
+    hf = h.float()
+    hsc = torch.clamp(hf.abs().amax(dim=-1, keepdim=True), min=1e-8) / 127.0
+    h8 = torch.clamp(torch.round(hf / hsc), -127, 127).to(torch.int8)
+    y32 = _int8_matmul(h8.reshape(-1, h8.shape[-1]), w["q"])
+    y32 = y32.reshape(*h8.shape[:-1], y32.shape[-1])
+    y = y32.float() * hsc * w["scale"]
+    return y.to(h.dtype)
+
+
+def quantize_params_int8(params: Dict) -> Dict:
+    """Quantize the projection matrices, the embedding (per row, so the
+    tied lm_head dequantizes per logit column) and any lm_head."""
+    out = dict(params)
+    layers = dict(params["layers"])
+    for key in _QUANT_KEYS:
+        if key in layers and not is_quantized(layers[key]):
+            layers[key] = quantize_weight(layers[key])
+    out["layers"] = layers
+    embed = params["embed"]
+    chunks, scales = [], []
+    n = embed.shape[0]
+    step = max(1, n // 8)
+    for lo in range(0, n, step):
+        part = embed[lo : lo + step].float()
+        amax = part.abs().amax(dim=1, keepdim=True)
+        scale = torch.clamp(amax / 127.0, min=1e-12)
+        chunks.append(torch.clamp(torch.round(part / scale), -127, 127).to(torch.int8))
+        scales.append(scale[:, 0])
+    out["embed"] = {"q": torch.cat(chunks), "scale": torch.cat(scales)}
+    if "lm_head" in params:
+        out["lm_head"] = quantize_weight(params["lm_head"])
+    return out
+
+
+def _concat_weights(leaves):
+    if is_quantized(leaves[0]):
+        return {
+            "q": torch.cat([l["q"] for l in leaves], dim=-1),
+            "scale": torch.cat([l["scale"] for l in leaves], dim=-1),
+        }
+    return torch.cat(leaves, dim=-1)
+
+
+def fuse_layer_weights(params: Dict) -> Dict:
+    """Serving-time projection fusion: wq|wk|wv -> wqkv, wg|wu -> wgu
+    (bit-identical: int8 scales are per output column).  Idempotent."""
+    layers = dict(params["layers"])
+    if "wqkv" not in layers:
+        layers["wqkv"] = _concat_weights(
+            [layers.pop("wq"), layers.pop("wk"), layers.pop("wv")]
+        )
+    if "wgu" not in layers:
+        layers["wgu"] = _concat_weights([layers.pop("wg"), layers.pop("wu")])
+    out = dict(params)
+    out["layers"] = layers
+    return out
+
+
+def embed_lookup(embed: Weight, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Token embedding lookup for plain or quantized tables."""
+    if not is_quantized(embed):
+        return embed[tokens]
+    rows = embed["q"][tokens].float()
+    scales = embed["scale"][tokens][..., None]
+    return (rows * scales).to(dtype)
+
+
+def tied_lm_head_logits(x: torch.Tensor, embed: Weight) -> torch.Tensor:
+    """``x @ embed.T`` in fp32 for plain or quantized embedding tables."""
+    if not is_quantized(embed):
+        return (x @ embed.T).float()
+    y = x @ embed["q"].T.to(x.dtype)
+    return y.float() * embed["scale"]

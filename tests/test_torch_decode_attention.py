@@ -1,0 +1,166 @@
+"""The port's decode-attention wrappers against the JAX package's entry
+points.  On the CPU each wrapper runs its plain twin; the JAX side runs
+its Pallas kernels in interpret mode where they take the shape (kernel 1
+and the slot kernel) and its dense oracle otherwise (the layered entry).
+
+fp32 on both sides: outputs agree to 2e-4 (abs and rel), the tolerance of
+the JAX package's own kernel tests.  A slot of length 0 yields zeros, as
+the Pallas kernels give (the dense oracle gives the mean of V there).
+
+The ``requires_cuda`` tests hold each CUDA kernel against its twin on the
+card and skip where there is none."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from project_morpheus_tpu.ops.decode_attention import (
+    decode_attention as jax_decode_attention,
+    decode_attention_int8_slots as jax_slots,
+    decode_attention_layered as jax_layered,
+)
+from project_morpheus_tpu_torch.ops import decode_attention as da
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _mk(B=2, S=512, KV=2, G=3, HD=128, seed=0):
+    rng = np.random.default_rng(seed)
+    H = KV * G
+    return (rng.standard_normal((B, H, HD)).astype(np.float32),
+            rng.standard_normal((B, KV, S, HD)).astype(np.float32),
+            rng.standard_normal((B, KV, S, HD)).astype(np.float32))
+
+
+@pytest.mark.parametrize("lengths", [[512, 512], [100, 300], [1, 257], [0, 130]])
+def test_single_layer_matches_pallas_kernel(lengths):
+    q, k, v = _mk()
+    lens = np.asarray(lengths, np.int32)
+    want = jax_decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                jnp.asarray(lens), block_s=128, interpret=True)
+    got = da.decode_attention(_t(q), _t(k), _t(v), _t(lens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_single_layer_tail_garbage_ignored():
+    q, k, v = _mk(B=1, seed=3)
+    lens = _t(np.asarray([130], np.int32))
+    base = da.decode_attention(_t(q), _t(k), _t(v), lens)
+    k[:, :, 130:] = 1e9
+    v[:, :, 130:] = -1e9
+    got = da.decode_attention(_t(q), _t(k), _t(v), lens)
+    np.testing.assert_allclose(got.numpy(), base.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def _int8_layered(seed=0, L=2, B=3, KV=2, S=256, HD=128):
+    rng = np.random.default_rng(seed)
+    kf = rng.normal(size=(L, B, KV, S, HD)).astype(np.float32)
+    vf = rng.normal(size=(L, B, KV, S, HD)).astype(np.float32)
+    ks = (np.abs(kf).max(-1) / 127.0 + 1e-8).astype(np.float32)
+    vs = (np.abs(vf).max(-1) / 127.0 + 1e-8).astype(np.float32)
+    k8 = np.clip(np.round(kf / ks[..., None]), -127, 127).astype(np.int8)
+    v8 = np.clip(np.round(vf / vs[..., None]), -127, 127).astype(np.int8)
+    q = rng.normal(size=(B, KV * 3, HD)).astype(np.float32)
+    return q, kf, vf, k8, v8, ks, vs
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_layered_matches_jax_with_length_zero(quant):
+    q, kf, vf, k8, v8, ks, vs = _int8_layered()
+    lens = np.asarray([0, 100, 256], np.int32)
+    if quant:
+        want = jax_layered(jnp.asarray(q), jnp.asarray(k8), jnp.asarray(v8), jnp.asarray(lens),
+                           jnp.asarray(1), k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs),
+                           interpret=True)
+        got = da.decode_attention_layered(_t(q), _t(k8), _t(v8), _t(lens), 1,
+                                          k_scale=_t(ks), v_scale=_t(vs))
+    else:
+        want = jax_layered(jnp.asarray(q), jnp.asarray(kf), jnp.asarray(vf), jnp.asarray(lens),
+                           jnp.asarray(1), interpret=True)
+        got = da.decode_attention_layered(_t(q), _t(kf), _t(vf), _t(lens), 1)
+    np.testing.assert_allclose(got.numpy()[1:], np.asarray(want)[1:], **TOL)
+    assert np.all(got.numpy()[0] == 0.0)
+
+
+def _mk_slots(L=2, B=3, S=256, KV=2, HD=32, H=6, seed=0):
+    rng = np.random.default_rng(seed)
+    k8 = rng.integers(-127, 128, (L, B, S, KV * HD), dtype=np.int8)
+    v8 = rng.integers(-127, 128, (L, B, S, KV * HD), dtype=np.int8)
+    sc = rng.uniform(0.005, 0.02, (L, B, S, 2 * KV)).astype(np.float32)
+    q = rng.standard_normal((B, H, HD)).astype(np.float32)
+    return q, k8, v8, sc
+
+
+def _jax_slots(q, k8, v8, sc, lens, layer):
+    return np.asarray(jax_slots(jnp.asarray(q), jnp.asarray(k8), jnp.asarray(v8),
+                                jnp.asarray(sc), jnp.asarray(lens), jnp.asarray(layer),
+                                block_s=64, interpret=True))
+
+
+@pytest.mark.parametrize("lengths", [[256, 256, 256], [5, 128, 250], [0, 256, 17]])
+def test_int8_slots_matches_pallas_kernel(lengths):
+    q, k8, v8, sc = _mk_slots()
+    lens = np.asarray(lengths, np.int32)
+    for layer in (0, 1):
+        got = da.decode_attention_int8_slots(_t(q), _t(k8), _t(v8), _t(sc), _t(lens), layer)
+        np.testing.assert_allclose(got.numpy(), _jax_slots(q, k8, v8, sc, lens, layer), **TOL)
+
+
+def test_int8_slots_tail_garbage_ignored():
+    q, k8, v8, sc = _mk_slots(seed=3)
+    lens = np.asarray([100, 64, 200], np.int32)
+    base = da.decode_attention_int8_slots(_t(q), _t(k8), _t(v8), _t(sc), _t(lens), 0)
+    k8[0, 0, 100:] = 127
+    v8[0, 0, 100:] = -127
+    sc[0, 0, 100:] = 1.0
+    got = da.decode_attention_int8_slots(_t(q), _t(k8), _t(v8), _t(sc), _t(lens), 0)
+    np.testing.assert_allclose(got.numpy(), base.numpy(), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), _jax_slots(q, k8, v8, sc, lens, 0), **TOL)
+
+
+def test_wrappers_count_only_kernel_launches():
+    q, k8, v8, sc = _mk_slots()
+    da.reset_launch_counts()
+    da.decode_attention_int8_slots(_t(q), _t(k8), _t(v8), _t(sc),
+                                   _t(np.asarray([1, 2, 3], np.int32)), 0)
+    assert da.LAUNCHES == {"decode_attention_layered": 0, "decode_attention_int8_slots": 0}
+
+
+# ----------------------------------------------------------- on the card
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.requires_cuda
+def test_cuda_kernels_match_twins(cuda):
+    """Both CUDA kernels against their twins at Orpheus-3B head shapes;
+    bf16 output vs fp32 twin: |err| <= 1e-2 * |ref| + 2e-3."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    L, B, S, KV, HD, H = 2, 4, 1024, 8, 128, 24
+    lens = torch.tensor([0, 1, 700, 1024], dtype=torch.int32, device=cuda)
+    q = torch.randn(B, H, HD, generator=g, device=cuda).to(torch.bfloat16)
+    k8 = torch.randint(-127, 128, (L, B, S, KV * HD), generator=g, device=cuda, dtype=torch.int8)
+    v8 = torch.randint(-127, 128, (L, B, S, KV * HD), generator=g, device=cuda, dtype=torch.int8)
+    sc = torch.rand(L, B, S, 2 * KV, generator=g, device=cuda) * 0.02
+    kb = torch.randn(L, B, KV, S, HD, generator=g, device=cuda).to(torch.bfloat16)
+    vb = torch.randn(L, B, KV, S, HD, generator=g, device=cuda).to(torch.bfloat16)
+    cases = [
+        (da.decode_attention_int8_slots(q, k8, v8, sc, lens, 1),
+         da.decode_attention_int8_slots_plain(q.float(), k8, v8, sc, lens, 1)),
+        (da.decode_attention_layered(q, kb, vb, lens, 1),
+         da.decode_attention_layered_plain(q.float(), kb, vb, lens, 1)),
+    ]
+    torch.cuda.synchronize()
+    for got, want in cases:
+        err = (got.float() - want).abs()
+        assert torch.all(err <= 1e-2 * want.abs() + 2e-3)
+        assert torch.all(got[0] == 0)

@@ -1,0 +1,152 @@
+"""The port's decoder (project_morpheus_tpu_torch.model.llama) against the
+JAX package's: helpers, chunked prefill and the decode step in its three
+attention branches, with plain and int8 weights carried across.
+
+Everything runs in fp32 on the CPU; the two packages then differ only in
+summation order, so logits agree to 1e-3 (abs and rel) and caches to 1e-4,
+except where a quantisation step rounds a value on a half-step the other
+way, which the int8 cases bound separately (see each test)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from project_morpheus_tpu.model import LlamaConfig as JaxLlamaConfig
+from project_morpheus_tpu.model import init_llama_params as jax_init
+from project_morpheus_tpu.model import llama as jl
+from project_morpheus_tpu.model.quant import fuse_layer_weights as jax_fuse
+from project_morpheus_tpu.model.quant import quantize_params_int8 as jax_quant
+from project_morpheus_tpu_torch.model import LlamaConfig
+from project_morpheus_tpu_torch.model import llama as tl
+from project_morpheus_tpu_torch.model.bridge import params_from_jax_numpy
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+_jax_prefill = jax.jit(jl.llama_prefill_chunk, static_argnames=("cfg", "hist_bucket", "w8a8"))
+_jax_decode = jax.jit(jl.llama_decode_step, static_argnames=("cfg", "attn_impl", "bucket"))
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x, np.float32)
+
+
+@pytest.fixture(scope="module")
+def cfg():
+    return LlamaConfig.tiny_vocab()
+
+
+_WEIGHTS = {}
+
+
+def _weights(kind):
+    """JAX params of one kind and their carried-across torch copy."""
+    if kind not in _WEIGHTS:
+        cfg = JaxLlamaConfig.tiny_vocab()
+        p = jax_init(cfg, jax.random.key(3), dtype=jnp.float32)
+        if kind != "plain":
+            p = jax_quant(p)
+        if kind == "int8_fused":
+            p = jax_fuse(p)
+        _WEIGHTS[kind] = (p, params_from_jax_numpy(jax.tree.map(np.asarray, p)))
+    return _WEIGHTS[kind]
+
+
+def test_helpers_match_jax():
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 5, 4, 16)).astype(np.float32)
+    scale = rng.normal(size=(16,)).astype(np.float32)
+    np.testing.assert_allclose(
+        _np(tl.rmsnorm(torch.tensor(x), torch.tensor(scale), 1e-5)),
+        np.asarray(jl.rmsnorm(jnp.asarray(x), jnp.asarray(scale), 1e-5)), **TOL)
+    for c in (LlamaConfig.tiny(), LlamaConfig.orpheus_3b()):
+        np.testing.assert_allclose(_np(tl.rope_inv_freqs(c)), np.asarray(jl.rope_inv_freqs(c)),
+                                   rtol=1e-6)
+    c = LlamaConfig.orpheus_3b()
+    pos = rng.integers(0, 8192, (2, 5)).astype(np.int32)
+    xr = rng.normal(size=(2, 5, 3, 128)).astype(np.float32)
+    np.testing.assert_allclose(
+        _np(tl.apply_rope(torch.tensor(xr), torch.tensor(pos), tl.rope_inv_freqs(c))),
+        np.asarray(jl.apply_rope(jnp.asarray(xr), jnp.asarray(pos), jl.rope_inv_freqs(c))),
+        rtol=1e-4, atol=1e-3)  # angles up to 8192 rad: cos/sin of large args
+    q_t, s_t = tl.quantize_kv(torch.tensor(x))
+    q_j, s_j = jl.quantize_kv(jnp.asarray(x))
+    np.testing.assert_array_equal(q_t.numpy(), np.asarray(q_j))
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=1e-7)
+
+
+def _caches(cfg, B, S, quant):
+    jc = jl.init_kv_cache(cfg, B, S, jnp.int8 if quant else jnp.float32)
+    tc = tl.init_kv_cache(cfg, B, S, torch.int8 if quant else torch.float32)
+    return jc, tc
+
+
+def _assert_cache_close(jc, tc):
+    for name in jc:
+        a, b = np.asarray(jc[name]), tc[name].numpy()
+        if a.dtype == np.int8:
+            # a value on a rounding half-step may land one step apart
+            d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+            assert d.max() <= 1 and (d > 0).mean() < 1e-3, name
+        else:
+            np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("kind,quant,w8a8", [
+    ("plain", False, False), ("plain", True, False), ("int8", False, True),
+    ("int8_fused", True, True), ("int8_fused", True, False),
+])
+def test_prefill_chunks_match_jax(cfg, kind, quant, w8a8):
+    """Two chunks (the second attends to the first through the cache)
+    into lane 1 of a 2-slot cache: logits and written cache agree."""
+    jp, tp = _weights(kind)
+    rng = np.random.default_rng(1)
+    toks = rng.integers(3, 900, 40).astype(np.int32)
+    jc, tc = _caches(cfg, 2, 64, quant)
+    for off, clen, length in ((0, 24, 24), (24, 32, 16)):
+        chunk = np.zeros(clen, np.int32)
+        chunk[:length] = toks[off:off + length]
+        jlog, jc = _jax_prefill(
+            jp, jnp.asarray(chunk), cfg, jc, jnp.asarray(off), jnp.asarray(1),
+            jnp.asarray(length), hist_bucket=64, w8a8=w8a8)
+        tlog = tl.llama_prefill_chunk(tp, torch.tensor(chunk), cfg, tc, off, 1, length,
+                                      hist_bucket=64, w8a8=w8a8)
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), rtol=1e-3, atol=1e-3)
+    _assert_cache_close(jc, tc)
+
+
+@pytest.mark.parametrize("kind,attn,quant", [
+    ("plain", "dense", False), ("plain", "dense", True), ("plain", "kernel", False),
+    ("plain", "kernel", True), ("int8_fused", "dense", True),
+    ("int8_fused", "kernel", True), ("int8", "kernel", False),
+])
+def test_decode_steps_match_jax(cfg, kind, attn, quant):
+    """Prefill two slots, then three decode steps (one slot inactive on the
+    last) in the dense and kernel-twin branches; each port branch is held
+    against its own JAX counterpart ("pallas" for the kernel)."""
+    jp, tp = _weights(kind)
+    rng = np.random.default_rng(2)
+    B, S = 2, 64
+    jc, tc = _caches(cfg, B, S, quant)
+    lens = [9, 5]
+    for b, n in enumerate(lens):
+        chunk = rng.integers(3, 900, 16).astype(np.int32)
+        _, jc = _jax_prefill(jp, jnp.asarray(chunk), cfg, jc, jnp.asarray(0),
+                             jnp.asarray(b), jnp.asarray(n), hist_bucket=64)
+        tl.llama_prefill_chunk(tp, torch.tensor(chunk), cfg, tc, 0, b, n, hist_bucket=64)
+    lengths = np.asarray(lens, np.int32)
+    jimpl = "pallas" if attn == "kernel" else "dense"
+    for step in range(3):
+        nxt = rng.integers(3, 900, B).astype(np.int32)
+        active = np.asarray([True, step < 2])
+        jlog, jc = _jax_decode(
+            jp, jnp.asarray(nxt), cfg, jc, jnp.asarray(lengths), active=jnp.asarray(active),
+            attn_impl=jimpl, bucket=32)
+        tlog = tl.llama_decode_step(
+            tp, torch.tensor(nxt), cfg, tc, torch.tensor(lengths), active=torch.tensor(active),
+            attn_impl=attn, bucket=32)
+        # the dense int8 branch requantises q and p: a half-step rounding
+        # difference moves a logit by ~1e-3 of its scale
+        tol = dict(rtol=2e-3, atol=2e-3) if quant and attn == "dense" else dict(rtol=1e-3, atol=1e-3)
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **tol)
+        lengths = lengths + active
+    _assert_cache_close(jc, tc)

@@ -1,0 +1,79 @@
+"""The port's sampler against the JAX package's: greedy choices and the
+top-p nucleus (both found by the same 24-step bisection) must be equal,
+not merely close."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from project_morpheus_tpu.model import sampling as js
+from project_morpheus_tpu_torch.model import sampling as ts
+
+
+def _inputs(seed, B=4, Vp=1024, V=1000):
+    rng = np.random.default_rng(seed)
+    logits = (rng.standard_normal((B, Vp)) * 3).astype(np.float32)
+    presence = rng.random((B, Vp)) < 0.05
+    temp = np.asarray([0.0, 0.6, 1.0, 1.4], np.float32)[:B]
+    top_p = np.asarray([0.9, 0.5, 0.95, 0.2], np.float32)[:B]
+    pen = np.asarray([1.1, 1.3, 1.0, 1.2], np.float32)[:B]
+    return logits, presence, temp, top_p, pen, V
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_greedy_matches_jax(seed):
+    logits, presence, _, top_p, pen, V = _inputs(seed)
+    zero = np.zeros(len(logits), np.float32)
+    want = js.sample_logits(jnp.asarray(logits), jax.random.key(0), temperature=jnp.asarray(zero),
+                            top_p=jnp.asarray(top_p), repetition_penalty=jnp.asarray(pen),
+                            presence=jnp.asarray(presence), vocab_size=V)
+    got = ts.sample_logits(torch.tensor(logits), [None] * len(logits),
+                           temperature=torch.tensor(zero), top_p=torch.tensor(top_p),
+                           repetition_penalty=torch.tensor(pen),
+                           presence=torch.tensor(presence), vocab_size=V)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_nucleus_sets_match_jax(seed, monkeypatch):
+    """The JAX sampler's nucleus logits are caught at its categorical draw
+    and compared, id by id, with the port's nucleus."""
+    logits, presence, temp, top_p, pen, V = _inputs(seed)
+    seen = {}
+
+    def catch(key, nucleus, axis=-1):
+        seen["nucleus"] = np.asarray(nucleus)
+        return jnp.argmax(nucleus, axis=axis)
+
+    monkeypatch.setattr(jax.random, "categorical", catch)
+    js.sample_logits(jnp.asarray(logits), jax.random.key(0), temperature=jnp.asarray(temp),
+                     top_p=jnp.asarray(top_p), repetition_penalty=jnp.asarray(pen),
+                     presence=jnp.asarray(presence), vocab_size=V)
+    pl = ts.penalized_logits(torch.tensor(logits), repetition_penalty=torch.tensor(pen),
+                             presence=torch.tensor(presence), vocab_size=V)
+    scaled = pl / torch.clamp(torch.tensor(temp), min=1e-4)[:, None]
+    got = ts.nucleus_logits(scaled, torch.tensor(top_p))
+    want_set = np.isfinite(seen["nucleus"])
+    np.testing.assert_array_equal(torch.isfinite(got).numpy(), want_set)
+    assert want_set.sum(axis=1).min() >= 1
+
+
+def test_draws_follow_each_slots_generator():
+    """A lane's draw depends only on its own generator: the same seed gives
+    the same token whatever the other lanes do, and draws stay in the nucleus."""
+    logits, presence, _, top_p, pen, V = _inputs(4)
+    temp = torch.full((4,), 1.0)
+
+    def draw(seeds):
+        gens = [None if s is None else torch.Generator().manual_seed(s) for s in seeds]
+        return ts.sample_logits(torch.tensor(logits), gens, temperature=temp,
+                                top_p=torch.tensor(top_p), repetition_penalty=torch.tensor(pen),
+                                presence=torch.tensor(presence), vocab_size=V)
+
+    a, b = draw([1, 2, 3, 4]), draw([1, 9, None, 4])
+    assert a[0] == b[0] and a[3] == b[3]
+    pl = ts.penalized_logits(torch.tensor(logits), repetition_penalty=torch.tensor(pen),
+                             presence=torch.tensor(presence), vocab_size=V)
+    nuc = ts.nucleus_logits(pl / temp[:, None], torch.tensor(top_p))
+    assert all(torch.isfinite(nuc[i, a[i]]) for i in range(4))
