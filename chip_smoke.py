@@ -7,9 +7,13 @@ Phases, each raising on failure (exit code 1, no result lines):
 
 1. build the CUDA kernels from ``project_morpheus_tpu_torch/ops/csrc``;
 2. hold each kernel against its plain PyTorch twin at the Orpheus-3B
-   serving shapes (8 slots x 8192 positions, mixed live lengths, garbage
-   past each slot's frontier) and time kernel, twin and, where one
-   exists, the PyTorch library call for the same function;
+   serving shapes (8 slots x 8192 positions, all live, then mixed live
+   lengths with garbage past each slot's frontier, then one slot past the
+   capacity) at layers 0 and 27, and time it at the mixed and all-live
+   shapes with ``tools/time_kernels.py``: device time per call from a CUDA
+   graph of 28 calls, the wrapper's host time per call, the bound, and
+   the twin's and (where one exists) the PyTorch library call's time;
+   then check them at the Orpheus-1B head shape (HD=64, G=4);
 3. hold the port's decode path on the card (bf16, int8 weights, CUDA
    kernels, int8 and bf16 caches) against the same path on the CPU (fp32,
    plain twins) on a small model;
@@ -41,7 +45,6 @@ import traceback
 
 H100_BYTES_PER_S = 3.35e12   # H100 SXM data sheet: HBM3 bandwidth
 H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak
-SLOT_LENGTHS = [1, 37, 511, 2048, 3000, 5000, 8191, 8192]
 
 
 def log(*a):
@@ -52,22 +55,6 @@ def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-
-
-def time_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn(i)`` over ``iters`` calls (CUDA events)."""
-    import torch
-
-    for i in range(3):
-        fn(i)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fn(i)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def bound(nbytes: float, ops: float):
@@ -88,42 +75,95 @@ def check_close(got, want, what: str) -> float:
 # ------------------------------------------------------------ phase 2
 
 
+def shape_timings(torch, dev, fn_for, nbytes_for, ops_for, library_for=None):
+    """Per timed shape: device ms (CUDA graph), host us, the old events
+    reading, bound and bound fraction, and the library call's device ms."""
+    from project_morpheus_tpu_torch.tools import time_kernels as tk
+
+    out = {}
+    for name, lens in tk.SHAPES.items():
+        lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+        fn = fn_for(lt)
+        t = tk.timings(fn)
+        b_ms, b_by = bound(nbytes_for(sum(lens)), ops_for(sum(lens)))
+        rec = dict(live=sum(lens), device_ms=t["device_ms"], host_us=t["host_us"],
+                   events_ms=t["events_ms"], bound_ms=b_ms, bound_by=b_by,
+                   bound_frac=b_ms / t["device_ms"], library_ms=None)
+        if library_for is not None:
+            rec["library_ms"] = tk.graph_ms(library_for(lt))
+        out[name] = rec
+    return out
+
+
+def kernel_record(name, source, replaces, err, plain, shapes):
+    mixed = shapes["mixed"]
+    return dict(name=name, route="cuda", source=source, replaces=replaces, launches=0,
+                max_abs_err=err, ms=mixed["device_ms"], plain_ms=plain,
+                bound_ms=mixed["bound_ms"], bound_by=mixed["bound_by"],
+                library_ms=mixed["library_ms"], shapes=shapes)
+
+
+def log_shapes(name, shapes):
+    for shape, r in shapes.items():
+        lib = "" if r["library_ms"] is None else f", sdpa {r['library_ms']:.4f} ms"
+        log(f"  {name} [{shape}, {r['live']} live]: device {r['device_ms']:.4f} ms/call, "
+            f"host {r['host_us']:.1f} us/call, events {r['events_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({100 * r['bound_frac']:.1f}%){lib}")
+
+
 def phase_kernels(torch, da, dev):
     """Each kernel vs its twin at the 3B shapes; returns kernel records."""
+    from project_morpheus_tpu_torch.tools import time_kernels as tk
+
     g = torch.Generator(device=dev).manual_seed(0)
-    L, B, S, KV, HD, H = 28, 8, 8192, 8, 128, 24
-    lens = torch.tensor(SLOT_LENGTHS, dtype=torch.int32, device=dev)
-    live = sum(SLOT_LENGTHS)
+    L, B, S, KV, HD, H = tk.L, tk.B, tk.S, tk.KV, tk.HD, tk.H
+    mixed = tk.SHAPES["mixed"]
+    # checked at the timed shapes, and with the last slot past the capacity
+    sets = {name: torch.tensor(v, dtype=torch.int32, device=dev) for name, v in tk.SHAPES.items()}
+    sets["past_capacity"] = torch.tensor(mixed[:-1] + [S + 100], dtype=torch.int32, device=dev)
     q = torch.randn(B, H, HD, generator=g, device=dev).to(torch.bfloat16)
     q_bytes = 2 * B * H * HD * 2 + B * 4  # q in, out, lengths
-    ops = 4.0 * live * H * HD  # q.k and p.v, multiply-add each
+    ops = lambda live: 4.0 * live * H * HD  # q.k and p.v, multiply-add each
     records = []
+
+    def check_sets(run, twin, what, garbage):
+        """All live first, on clean data; then garbage past each mixed
+        frontier, and the mixed and past-capacity sets."""
+        err = 0.0
+        for name in ("all_live", "mixed", "past_capacity"):
+            if name == "mixed":
+                garbage()
+            for layer in (0, L - 1):
+                got, want = run(sets[name], layer), twin(sets[name], layer)
+                torch.cuda.synchronize()
+                err = max(err, check_close(got, want, f"{what}, {name}, layer {layer}"))
+                if bool(got[0].float().abs().max() == 0):
+                    raise AssertionError(f"{what} wrote zeros for a live slot")
+        return err
 
     # kernel 3: int8 slots over the flat position-major cache
     k8 = torch.randint(-127, 128, (L, B, S, KV * HD), generator=g, device=dev, dtype=torch.int8)
     v8 = torch.randint(-127, 128, (L, B, S, KV * HD), generator=g, device=dev, dtype=torch.int8)
     sc = torch.rand(L, B, S, 2 * KV, generator=g, device=dev) * 0.02 + 0.002
-    for b, n in enumerate(SLOT_LENGTHS):  # garbage past each live frontier
-        k8[:, b, n:], v8[:, b, n:], sc[:, b, n:] = 127, -127, 1e3
-    err = 0.0
-    for layer in (0, 27):
-        got = da.decode_attention_int8_slots(q, k8, v8, sc, lens, layer)
-        want = da.decode_attention_int8_slots_plain(q.float(), k8, v8, sc, lens, layer)
-        torch.cuda.synchronize()
-        err = max(err, check_close(got, want, f"int8 slot kernel, layer {layer}"))
-        if bool(got[0].float().abs().max() == 0) and SLOT_LENGTHS[0] > 0:
-            raise AssertionError("int8 slot kernel wrote zeros for a live slot")
-    ms = time_ms(lambda i: da.decode_attention_int8_slots(q, k8, v8, sc, lens, i % L), 56)
-    plain = time_ms(lambda i: da.decode_attention_int8_slots_plain(q, k8, v8, sc, lens, i % L), 5)
-    b_ms, b_by = bound(q_bytes + live * (2 * KV * HD + 2 * KV * 4), ops)
-    records.append(dict(
-        name="decode_attention_int8_slots", route="cuda",
-        source="project_morpheus_tpu_torch/ops/csrc/decode_attention_int8_slots.cu",
-        replaces="project_morpheus_tpu/ops/decode_attention.py:355",
-        launches=0, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None))
-    log(f"kernel decode_attention_int8_slots: max_abs_err {err:.3e}  {ms:.4f} ms/layer "
-        f"(twin {plain:.3f} ms, bound {b_ms:.4f} ms by {b_by})")
+
+    def garbage8():
+        for b, n in enumerate(mixed):
+            k8[:, b, n:], v8[:, b, n:], sc[:, b, n:] = 127, -127, 1e3
+
+    err = check_sets(lambda lt, i: da.decode_attention_int8_slots(q, k8, v8, sc, lt, i),
+                     lambda lt, i: da.decode_attention_int8_slots_plain(q.float(), k8, v8, sc, lt, i),
+                     "int8 slot kernel", garbage8)
+    plain = tk.events_ms(lambda i: da.decode_attention_int8_slots_plain(
+        q, k8, v8, sc, sets["mixed"], i % L), 5)
+    shapes = shape_timings(
+        torch, dev, lambda lt: (lambda i: da.decode_attention_int8_slots(q, k8, v8, sc, lt, i % L)),
+        lambda live: q_bytes + live * (2 * KV * HD + 2 * KV * 4), ops)
+    records.append(kernel_record(
+        "decode_attention_int8_slots",
+        "project_morpheus_tpu_torch/ops/csrc/decode_attention_int8_slots.cu",
+        "project_morpheus_tpu/ops/decode_attention.py:355", err, plain, shapes))
+    log(f"kernel decode_attention_int8_slots: max_abs_err {err:.3e}, twin {plain:.3f} ms")
+    log_shapes("decode_attention_int8_slots", shapes)
 
     # int8 branch of the layered kernel (template flag), two layers
     k8h = k8[:2].view(2, B, S, KV, HD).transpose(2, 3).contiguous()
@@ -131,46 +171,80 @@ def phase_kernels(torch, da, dev):
     ksh = sc[:2, ..., :KV].transpose(2, 3).contiguous()
     vsh = sc[:2, ..., KV:].transpose(2, 3).contiguous()
     del k8, v8, sc
-    got = da.decode_attention_layered(q, k8h, v8h, lens, 1, k_scale=ksh, v_scale=vsh)
-    want = da.decode_attention_layered_plain(q.float(), k8h, v8h, lens, 1, ksh, vsh)
-    torch.cuda.synchronize()
-    e8 = check_close(got, want, "layered kernel, int8 cache")
+    e8 = 0.0
+    for name in ("mixed", "past_capacity"):
+        got = da.decode_attention_layered(q, k8h, v8h, sets[name], 1, k_scale=ksh, v_scale=vsh)
+        want = da.decode_attention_layered_plain(q.float(), k8h, v8h, sets[name], 1, ksh, vsh)
+        torch.cuda.synchronize()
+        e8 = max(e8, check_close(got, want, f"layered kernel, int8 cache, {name}"))
     log(f"kernel decode_attention_layered (int8 cache): max_abs_err {e8:.3e}")
     del k8h, v8h, ksh, vsh
 
     # kernel 2: layered bf16 over the head-major cache; kernel 1 is it at L = 1
     kb = torch.randn(L, B, KV, S, HD, generator=g, device=dev).to(torch.bfloat16)
     vb = torch.randn(L, B, KV, S, HD, generator=g, device=dev).to(torch.bfloat16)
-    for b, n in enumerate(SLOT_LENGTHS):
-        kb[:, b, :, n:], vb[:, b, :, n:] = 1e4, -1e4
-    err = 0.0
-    for layer in (0, 27):
-        got = da.decode_attention_layered(q, kb, vb, lens, layer)
-        want = da.decode_attention_layered_plain(q.float(), kb, vb, lens, layer)
-        torch.cuda.synchronize()
-        err = max(err, check_close(got, want, f"layered kernel, layer {layer}"))
-    got = da.decode_attention(q, kb[5], vb[5], lens)
-    want = da.decode_attention_layered_plain(q.float(), kb, vb, lens, 5)
+
+    def garbage16():
+        for b, n in enumerate(mixed):
+            kb[:, b, :, n:], vb[:, b, :, n:] = 1e4, -1e4
+
+    err = check_sets(lambda lt, i: da.decode_attention_layered(q, kb, vb, lt, i),
+                     lambda lt, i: da.decode_attention_layered_plain(q.float(), kb, vb, lt, i),
+                     "layered kernel", garbage16)
+    got = da.decode_attention(q, kb[5], vb[5], sets["mixed"])
+    want = da.decode_attention_layered_plain(q.float(), kb, vb, sets["mixed"], 5)
     torch.cuda.synchronize()
     err = max(err, check_close(got, want, "single-layer entry"))
-    ms = time_ms(lambda i: da.decode_attention_layered(q, kb, vb, lens, i % L), 56)
-    plain = time_ms(lambda i: da.decode_attention_layered_plain(q, kb, vb, lens, i % L), 5)
-    mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-    q4 = q[:, :, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = time_ms(lambda i: sdpa(q4, kb[i % L], vb[i % L], attn_mask=mask, enable_gqa=True), 28)
-    b_ms, b_by = bound(q_bytes + live * 2 * KV * HD * 2, ops)
-    records.append(dict(
-        name="decode_attention_layered", route="cuda",
-        source="project_morpheus_tpu_torch/ops/csrc/decode_attention_layered.cu",
-        replaces="project_morpheus_tpu/ops/decode_attention.py:149",
-        launches=0, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib))
-    log(f"kernel decode_attention_layered: max_abs_err {err:.3e}  {ms:.4f} ms/layer "
-        f"(twin {plain:.3f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms by {b_by})")
+    plain = tk.events_ms(lambda i: da.decode_attention_layered_plain(
+        q, kb, vb, sets["mixed"], i % L), 5)
+    shapes = shape_timings(
+        torch, dev, lambda lt: (lambda i: da.decode_attention_layered(q, kb, vb, lt, i % L)),
+        lambda live: q_bytes + live * 2 * KV * HD * 2, ops,
+        library_for=lambda lt: tk.sdpa_call(torch, q, kb, vb, lt))
+    records.append(kernel_record(
+        "decode_attention_layered",
+        "project_morpheus_tpu_torch/ops/csrc/decode_attention_layered.cu",
+        "project_morpheus_tpu/ops/decode_attention.py:149", err, plain, shapes))
+    log(f"kernel decode_attention_layered: max_abs_err {err:.3e}, twin {plain:.3f} ms")
+    log_shapes("decode_attention_layered", shapes)
     del kb, vb
     torch.cuda.empty_cache()
     return records
+
+
+def phase_1b_heads(torch, da, dev) -> float:
+    """The kernels at the Orpheus-1B head shape (HD=64, G=4) on a small
+    cache, lengths 0 to past the capacity, against their twins."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    L, B, S, KV, HD, G = 2, 6, 1024, 8, 64, 4
+    lens = torch.tensor([0, 1, 65, 700, S, S + 100], dtype=torch.int32, device=dev)
+    q = torch.randn(B, KV * G, HD, generator=g, device=dev).to(torch.bfloat16)
+    k8 = torch.randint(-127, 128, (L, B, S, KV * HD), generator=g, device=dev, dtype=torch.int8)
+    v8 = torch.randint(-127, 128, (L, B, S, KV * HD), generator=g, device=dev, dtype=torch.int8)
+    sc = torch.rand(L, B, S, 2 * KV, generator=g, device=dev) * 0.02
+    kb = torch.randn(L, B, KV, S, HD, generator=g, device=dev).to(torch.bfloat16)
+    vb = torch.randn(L, B, KV, S, HD, generator=g, device=dev).to(torch.bfloat16)
+    k8h = k8.view(L, B, S, KV, HD).transpose(2, 3).contiguous()
+    v8h = v8.view(L, B, S, KV, HD).transpose(2, 3).contiguous()
+    ksh = sc[..., :KV].transpose(2, 3).contiguous()
+    vsh = sc[..., KV:].transpose(2, 3).contiguous()
+    cases = {
+        "int8 slot kernel": (da.decode_attention_int8_slots(q, k8, v8, sc, lens, 1),
+                             da.decode_attention_int8_slots_plain(q.float(), k8, v8, sc, lens, 1)),
+        "layered kernel, bf16": (da.decode_attention_layered(q, kb, vb, lens, 1),
+                                 da.decode_attention_layered_plain(q.float(), kb, vb, lens, 1)),
+        "layered kernel, int8": (
+            da.decode_attention_layered(q, k8h, v8h, lens, 1, k_scale=ksh, v_scale=vsh),
+            da.decode_attention_layered_plain(q.float(), k8h, v8h, lens, 1, ksh, vsh)),
+    }
+    torch.cuda.synchronize()
+    err = 0.0
+    for what, (got, want) in cases.items():
+        err = max(err, check_close(got, want, f"{what} at HD=64, G=4"))
+        if not bool((got[0] == 0).all()):
+            raise AssertionError(f"{what} at HD=64, G=4: a slot of length 0 is not zeros")
+    log(f"kernels at the 1B head shape (HD=64, G=4): max_abs_err {err:.3e}")
+    return err
 
 
 # ------------------------------------------------------------ phase 3
@@ -361,6 +435,7 @@ def run(card: str) -> None:
                 log(f"  {src}: {line.strip()}")
 
     records = phase_kernels(torch, da, dev)
+    phase_1b_heads(torch, da, dev)
     phase_reference(torch, dev)
 
     asyncio.run(serving_phases(card, records))

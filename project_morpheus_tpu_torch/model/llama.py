@@ -316,6 +316,7 @@ def llama_decode_step(
     pos_l = lengths.long()
     slots = torch.arange(B, device=dev)
     key_mask = torch.arange(bkt, device=dev)[None, :] <= lengths[:, None]  # (B, bkt)
+    live = lengths + 1  # positions each kernel attends, the new token's included
     lp = params["layers"]
     for i in range(cfg.num_layers):
         wl = _layer(lp, i)
@@ -338,9 +339,9 @@ def llama_decode_step(
             q0 = q[:, 0].contiguous()
             if quant:
                 attn = decode_attention_int8_slots(
-                    q0, cache["k"], cache["v"], cache["scale"], lengths + 1, i)
+                    q0, cache["k"], cache["v"], cache["scale"], live, i)
             else:
-                attn = decode_attention_layered(q0, cache["k"], cache["v"], lengths + 1, i)
+                attn = decode_attention_layered(q0, cache["k"], cache["v"], live, i)
             attn = attn.reshape(B, 1, cfg.num_heads * HD).to(x.dtype)
         elif quant:
             k_s = cache["k"][i, :, :bkt].reshape(B, bkt, KV, HD)

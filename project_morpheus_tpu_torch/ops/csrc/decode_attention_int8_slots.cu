@@ -8,8 +8,15 @@
 //   scale  (L, B, S, 2*KV)  fp32: k scales in [:KV], v scales in [KV:]
 // The kernel reads the scales in place; the TPU kernel's scale-major
 // (L, B, 2KV, S) copy and its aliasing of the cache through the call were
-// Mosaic/XLA workarounds with no counterpart here.  Design and bound: see
-// flash_decode.cuh.
+// Mosaic/XLA workarounds with no counterpart here.
+//
+// Bound: device-memory bytes, 2 x KV*HD + 2 x KV x 4 bytes per live position
+// (2,112 B at the 3B shapes; 8 slots x 8192 live: 138 MB, 41 us at
+// 3.35 TB/s).  Design against it (flash_decode.cuh): kv-head blocks of one
+// position range run side by side and stream the 1 KB rows through a
+// cp.async ring; int8 scores on tensor cores (mma.sync m16n8k16, positions
+// on M) after a PRMT/HSUB2 int8 -> fp16 conversion, so neither the score
+// reductions nor the conversions cost more than the bytes do.
 #include "flash_decode.cuh"
 
 extern "C" int mp_decode_attention_int8_slots(
@@ -39,6 +46,7 @@ extern "C" int mp_decode_attention_int8_slots(
   a.sc_b = (long long)S * 2 * KV;
   a.sc_h = 1;
   a.sc_p = 2 * KV;
+  a.S = S;
   a.H = H;
   a.KV = KV;
   a.n_splits = n_splits;

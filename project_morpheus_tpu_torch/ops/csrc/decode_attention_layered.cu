@@ -7,7 +7,13 @@
 // Cache layout, byte-identical to the JAX engine's bf16 cache:
 //   k, v   (L, B, KV, S, HD) bf16, or int8 with
 //   scales (L, B, KV, S) fp32 each (`quant`)
-// Design and bound: see flash_decode.cuh.
+//
+// Bound: device-memory bytes, 2 x KV*HD values per live position (4 KB in
+// bf16 at the 3B shapes; 26,980 live positions: 110 MB, 33 us at
+// 3.35 TB/s).  Design against it (flash_decode.cuh, the slot kernel's
+// template with head-major strides): each block streams its head's
+// contiguous rows through a cp.async ring, scores on tensor cores
+// (bf16 mma.sync m16n8k16, positions on M), P.V in fp32 on CUDA cores.
 #include "flash_decode.cuh"
 
 extern "C" int mp_decode_attention_layered(
@@ -38,6 +44,7 @@ extern "C" int mp_decode_attention_layered(
   a.sc_b = (long long)KV * S;
   a.sc_h = S;
   a.sc_p = 1;
+  a.S = S;
   a.H = H;
   a.KV = KV;
   a.n_splits = n_splits;

@@ -23,11 +23,13 @@ oracle would give the mean of V).
 Bound: each call reads every live K/V position of one layer once, so it is
 bound by device-memory bytes: at 8 slots x 8192 live positions of the 3B
 int8 cache, 65,536 x (2 x 1024 + 64) B = 138 MB, 41 us at the H100 SXM data
-sheet's 3.35 TB/s.  Design against that bound: a grid of (split, kv head,
-slot) blocks, each streaming ``SPLIT_LEN`` positions of one slot for the G
-query rows of one kv head, dequantising int8 in registers, with blocks
-past a slot's live length exiting at once; a second small pass merges the
-splits (see ``csrc/flash_decode.cuh``).
+sheet's 3.35 TB/s.  Design against that bound: a grid of (kv head, split,
+slot) blocks, each streaming up to ``SPLIT_LEN`` positions of one slot
+through a shared-memory ring of cp.async tiles for the G query rows of one
+kv head, scores on tensor cores, blocks past a slot's live length exiting
+at once; a second small kernel merges the splits (see
+``csrc/flash_decode.cuh``).  Both kernels attend ``min(lengths[b], S)``
+positions, as the twins do.
 
 Each wrapper sends a CPU tensor to its plain PyTorch twin in this module
 and launches its kernel for a CUDA tensor, or raises: nothing falls back.
@@ -42,8 +44,9 @@ import torch
 
 from . import build
 
-# positions each block streams; blocks past a slot's live length exit
-SPLIT_LEN = 256
+# positions each block streams, a whole number of the kernels' 128-position
+# tiles; blocks past a slot's live length exit
+SPLIT_LEN = 512
 
 # kernel launches per wrapper (never counts a plain-twin call)
 LAUNCHES = {"decode_attention_layered": 0, "decode_attention_int8_slots": 0}
@@ -202,6 +205,7 @@ def decode_attention_layered(
     n_splits = -(-S // SPLIT_LEN)
     out, m, l, acc = _scratch(q, n_splits)
     lib, fn = _entry("decode_attention_layered.cu", "mp_decode_attention_layered")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         status = fn(
             _ptr(q), _ptr(k_cache[layer]), _ptr(v_cache[layer]),
@@ -209,8 +213,7 @@ def decode_attention_layered(
             _ptr(v_scale[layer] if quant else None),
             _ptr(lengths), _ptr(out), _ptr(m), _ptr(l), _ptr(acc),
             B, S, KV, q.shape[1],
-            HD, int(quant), n_splits, SPLIT_LEN, HD**-0.5,
-            torch.cuda.current_stream(q.device).cuda_stream,
+            HD, int(quant), n_splits, SPLIT_LEN, HD**-0.5, stream,
         )
     _raise_on(lib, status, "decode_attention_layered")
     LAUNCHES["decode_attention_layered"] += 1
@@ -258,13 +261,13 @@ def decode_attention_int8_slots(
     n_splits = -(-S // SPLIT_LEN)
     out, m, l, acc = _scratch(q, n_splits)
     lib, fn = _entry("decode_attention_int8_slots.cu", "mp_decode_attention_int8_slots")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         status = fn(
             _ptr(q), _ptr(k_cache[layer]), _ptr(v_cache[layer]), _ptr(kv_scale[layer]),
             _ptr(lengths), _ptr(out), _ptr(m), _ptr(l), _ptr(acc),
             B, S, KV, q.shape[1],
-            HD, n_splits, SPLIT_LEN, HD**-0.5,
-            torch.cuda.current_stream(q.device).cuda_stream,
+            HD, n_splits, SPLIT_LEN, HD**-0.5, stream,
         )
     _raise_on(lib, status, "decode_attention_int8_slots")
     LAUNCHES["decode_attention_int8_slots"] += 1

@@ -1,0 +1,165 @@
+"""Device time of the decode-attention kernels, apart from their wrappers' host time.
+
+    python -m project_morpheus_tpu_torch.tools.time_kernels
+
+At the Orpheus-3B serving shapes (28 layers, 8 slots x 8192, KV=8, HD=128,
+G=3) and two sets of live lengths (``SHAPES``), times each kernel three ways:
+
+- ``device_ms``: ``GRAPH_CALLS`` wrapper calls (one per layer, so each call
+  finds its layer cold in L2) captured in one CUDA graph, the graph replayed
+  ``REPLAYS`` times between two CUDA events.  Only the kernels run in a
+  replay, so this is the card's time per call, free of the wrapper's checks,
+  allocations and ctypes call.
+- ``host_us``: the host clock over ``GRAPH_CALLS`` eager wrapper calls that
+  are not waited for: what one call costs the Python thread.
+- ``events_ms``: CUDA events around ``GRAPH_CALLS`` eager calls, the method
+  of the older records in ``PERF.md``; it reads the host wherever
+  ``host_us`` exceeds ``device_ms``.
+
+and, for the layered kernel, ``scaled_dot_product_attention`` on the same
+inputs as a yardstick (graph-timed the same way; the port never calls it).
+``main`` also splits each call's device time by CUDA kernel (split pass,
+merge) with the torch profiler.  Prints one JSON line.  ``chip_smoke.py`` phase 2 times with these functions.
+It needs a CUDA card and fails without one.
+"""
+from __future__ import annotations
+
+import json
+import re
+import time
+
+L, B, S, KV, HD, H = 28, 8, 8192, 8, 128, 24
+SHAPES = {
+    "mixed": [1, 37, 511, 2048, 3000, 5000, 8191, 8192],
+    "all_live": [8192] * 8,
+}
+GRAPH_CALLS = 28
+REPLAYS = 10
+
+
+def graph_ms(fn, calls: int = GRAPH_CALLS, replays: int = REPLAYS) -> float:
+    """Device ms per ``fn(i)``: ``calls`` calls captured in a CUDA graph,
+    replayed ``replays`` times between two events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture
+        for i in range(calls):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def host_us(fn, calls: int = GRAPH_CALLS) -> float:
+    """Host us per ``fn(i)`` over ``calls`` eager calls, none waited for."""
+    import torch
+
+    fn(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(calls):
+        fn(i)
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def events_ms(fn, calls: int = GRAPH_CALLS) -> float:
+    """Device ms per ``fn(i)`` from events around eager calls."""
+    import torch
+
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(calls):
+        fn(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def kernel_us(fn, calls: int = GRAPH_CALLS) -> dict:
+    """Device us per ``fn(i)`` of each CUDA kernel it launches, from the
+    torch profiler's CUPTI trace of ``calls`` eager calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(i)
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us > 0:
+            name = evt.key.replace("(anonymous namespace)::", "").replace("void ", "")
+            name = re.split(r"[<(]", name)[0]
+            out[name] = out.get(name, 0.0) + us / calls
+    return out
+
+
+def timings(fn) -> dict:
+    return dict(device_ms=graph_ms(fn), host_us=host_us(fn), events_ms=events_ms(fn))
+
+
+def sdpa_call(torch, q, k, v, lens):
+    """One PyTorch call for the layered kernel's function (the yardstick)."""
+    mask = (torch.arange(k.shape[-2], device=q.device)[None, :] < lens[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda i: sdpa(q4, k[i % k.shape[0]], v[i % v.shape[0]], attn_mask=mask,
+                          enable_gqa=True)
+
+
+def main() -> None:
+    import torch
+
+    from project_morpheus_tpu_torch.ops import build, decode_attention as da
+
+    if not torch.cuda.is_available():
+        raise SystemExit("time_kernels: needs a CUDA card")
+    build.build_all()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(B, H, HD, generator=g, device=dev).to(torch.bfloat16)
+    out = {"card": torch.cuda.get_device_name(0), "slots": {}, "layered": {}, "sdpa": {}}
+    k8 = torch.randint(-127, 128, (L, B, S, KV * HD), generator=g, device=dev, dtype=torch.int8)
+    v8 = torch.randint(-127, 128, (L, B, S, KV * HD), generator=g, device=dev, dtype=torch.int8)
+    sc = torch.rand(L, B, S, 2 * KV, generator=g, device=dev) * 0.02 + 0.002
+    for name, lens in SHAPES.items():
+        lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+        fn = lambda i: da.decode_attention_int8_slots(q, k8, v8, sc, lt, i % L)  # noqa: E731
+        out["slots"][name] = dict(timings(fn), by_kernel_us=kernel_us(fn))
+    del k8, v8, sc
+    kb = torch.randn(L, B, KV, S, HD, generator=g, device=dev).to(torch.bfloat16)
+    vb = torch.randn(L, B, KV, S, HD, generator=g, device=dev).to(torch.bfloat16)
+    for name, lens in SHAPES.items():
+        lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+        fn = lambda i: da.decode_attention_layered(q, kb, vb, lt, i % L)  # noqa: E731
+        out["layered"][name] = dict(timings(fn), by_kernel_us=kernel_us(fn))
+        out["sdpa"][name] = dict(device_ms=graph_ms(sdpa_call(torch, q, kb, vb, lt)))
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -86,6 +86,24 @@ def test_layered_matches_jax_with_length_zero(quant):
     assert np.all(got.numpy()[0] == 0.0)
 
 
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("lengths", [[63, 64, 65], [127, 128, 129], [255, 256, 1]])
+def test_layered_matches_jax_at_tile_edges(lengths, quant):
+    q, kf, vf, k8, v8, ks, vs = _int8_layered(seed=1)
+    lens = np.asarray(lengths, np.int32)
+    if quant:
+        want = jax_layered(jnp.asarray(q), jnp.asarray(k8), jnp.asarray(v8), jnp.asarray(lens),
+                           jnp.asarray(0), k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs),
+                           interpret=True)
+        got = da.decode_attention_layered(_t(q), _t(k8), _t(v8), _t(lens), 0,
+                                          k_scale=_t(ks), v_scale=_t(vs))
+    else:
+        want = jax_layered(jnp.asarray(q), jnp.asarray(kf), jnp.asarray(vf), jnp.asarray(lens),
+                           jnp.asarray(0), interpret=True)
+        got = da.decode_attention_layered(_t(q), _t(kf), _t(vf), _t(lens), 0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 def _mk_slots(L=2, B=3, S=256, KV=2, HD=32, H=6, seed=0):
     rng = np.random.default_rng(seed)
     k8 = rng.integers(-127, 128, (L, B, S, KV * HD), dtype=np.int8)
@@ -101,7 +119,10 @@ def _jax_slots(q, k8, v8, sc, lens, layer):
                                 block_s=64, interpret=True))
 
 
-@pytest.mark.parametrize("lengths", [[256, 256, 256], [5, 128, 250], [0, 256, 17]])
+# the CUDA kernels stream 128-position tiles, 16 positions a warp: lengths
+# on both sides of those edges, and of the capacity S = 256
+@pytest.mark.parametrize("lengths", [[256, 256, 256], [5, 128, 250], [0, 256, 17],
+                                     [63, 64, 65], [127, 128, 129], [255, 192, 193]])
 def test_int8_slots_matches_pallas_kernel(lengths):
     q, k8, v8, sc = _mk_slots()
     lens = np.asarray(lengths, np.int32)
@@ -120,6 +141,20 @@ def test_int8_slots_tail_garbage_ignored():
     got = da.decode_attention_int8_slots(_t(q), _t(k8), _t(v8), _t(sc), _t(lens), 0)
     np.testing.assert_allclose(got.numpy(), base.numpy(), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(got.numpy(), _jax_slots(q, k8, v8, sc, lens, 0), **TOL)
+
+
+@pytest.mark.parametrize("entry", ["int8_slots", "layered"])
+def test_twin_clamps_lengths_past_capacity(entry):
+    """A length past the capacity S attends the whole slot, as at S."""
+    over, at = _t(np.asarray([256 + 100, 5, 256], np.int32)), _t(np.asarray([256, 5, 256], np.int32))
+    if entry == "int8_slots":
+        q, k8, v8, sc = _mk_slots(seed=4)
+        run = lambda lens: da.decode_attention_int8_slots(_t(q), _t(k8), _t(v8), _t(sc), lens, 1)
+    else:
+        q, _, _, k8, v8, ks, vs = _int8_layered(seed=4)
+        run = lambda lens: da.decode_attention_layered(_t(q), _t(k8), _t(v8), lens, 1,
+                                                       k_scale=_t(ks), v_scale=_t(vs))
+    np.testing.assert_array_equal(run(over).numpy(), run(at).numpy())
 
 
 def test_wrappers_count_only_kernel_launches():
@@ -141,23 +176,33 @@ def cuda():
 
 
 @pytest.mark.requires_cuda
-def test_cuda_kernels_match_twins(cuda):
-    """Both CUDA kernels against their twins at Orpheus-3B head shapes;
-    bf16 output vs fp32 twin: |err| <= 1e-2 * |ref| + 2e-3."""
+@pytest.mark.parametrize("HD,G", [(128, 3), (64, 4)])
+def test_cuda_kernels_match_twins(cuda, HD, G):
+    """Both CUDA kernels (the layered one with bf16 and int8 caches) against
+    their twins at the Orpheus-3B (128, 3) and 1B (64, 4) head shapes, with
+    one slot past the capacity; bf16 output vs fp32 twin:
+    |err| <= 1e-2 * |ref| + 2e-3."""
     g = torch.Generator(device=cuda).manual_seed(0)
-    L, B, S, KV, HD, H = 2, 4, 1024, 8, 128, 24
-    lens = torch.tensor([0, 1, 700, 1024], dtype=torch.int32, device=cuda)
+    L, B, S, KV = 2, 6, 1024, 8
+    H = KV * G
+    lens = torch.tensor([0, 1, 65, 700, 1024, 1024 + 100], dtype=torch.int32, device=cuda)
     q = torch.randn(B, H, HD, generator=g, device=cuda).to(torch.bfloat16)
     k8 = torch.randint(-127, 128, (L, B, S, KV * HD), generator=g, device=cuda, dtype=torch.int8)
     v8 = torch.randint(-127, 128, (L, B, S, KV * HD), generator=g, device=cuda, dtype=torch.int8)
     sc = torch.rand(L, B, S, 2 * KV, generator=g, device=cuda) * 0.02
     kb = torch.randn(L, B, KV, S, HD, generator=g, device=cuda).to(torch.bfloat16)
     vb = torch.randn(L, B, KV, S, HD, generator=g, device=cuda).to(torch.bfloat16)
+    k8h = k8.view(L, B, S, KV, HD).transpose(2, 3).contiguous()
+    v8h = v8.view(L, B, S, KV, HD).transpose(2, 3).contiguous()
+    ksh = sc[..., :KV].transpose(2, 3).contiguous()
+    vsh = sc[..., KV:].transpose(2, 3).contiguous()
     cases = [
         (da.decode_attention_int8_slots(q, k8, v8, sc, lens, 1),
          da.decode_attention_int8_slots_plain(q.float(), k8, v8, sc, lens, 1)),
         (da.decode_attention_layered(q, kb, vb, lens, 1),
          da.decode_attention_layered_plain(q.float(), kb, vb, lens, 1)),
+        (da.decode_attention_layered(q, k8h, v8h, lens, 1, k_scale=ksh, v_scale=vsh),
+         da.decode_attention_layered_plain(q.float(), k8h, v8h, lens, 1, ksh, vsh)),
     ]
     torch.cuda.synchronize()
     for got, want in cases:
