@@ -6,32 +6,45 @@
 Phases, each raising on failure (exit code 1, no result lines):
 
 1. build the CUDA kernels from ``project_morpheus_tpu_torch/ops/csrc``;
-2. hold each kernel against its plain PyTorch twin at the Orpheus-3B
-   serving shapes (8 slots x 8192 positions, all live, then mixed live
-   lengths with garbage past each slot's frontier, then one slot past the
-   capacity) at layers 0 and 27, and time it at the mixed and all-live
-   shapes with ``tools/time_kernels.py``: device time per call from a CUDA
-   graph of 28 calls, the wrapper's host time per call, the bound, and
-   the twin's and (where one exists) the PyTorch library call's time;
-   then check them at the Orpheus-1B head shape (HD=64, G=4);
+2. hold each decode-attention kernel against its plain PyTorch twin at the
+   Orpheus-3B serving shapes (8 slots x 8192 positions, all live, then
+   mixed live lengths with garbage past each slot's frontier, then one slot
+   past the capacity) at layers 0 and 27, and time it at the mixed and
+   all-live shapes with ``tools/time_kernels.py``: device time per call
+   from a CUDA graph of 28 calls, the wrapper's host time per call, the
+   bound, and the twin's and (where one exists) the PyTorch library call's
+   time; then check them at the Orpheus-1B head shape (HD=64, G=4);
+   then the int8 GEMV at the five 3B weight shapes (wqkv, wo, wgu, wd over
+   28 stacked layers, and the tied lm_head), M = 1 and 8 rows: against its
+   twin, and timed the same way beside its bound, its twin (the cast +
+   matmul it replaces) and ``torch.matmul`` on a pre-cast bf16 weight;
 3. hold the port's decode path on the card (bf16, int8 weights, CUDA
    kernels, int8 and bf16 caches) against the same path on the CPU (fp32,
-   plain twins) on a small model;
+   plain twins) on a small model; then serve seeded requests on that model
+   with frame programs replayed from CUDA graphs and run eagerly, greedy
+   and at temperature 0.9: the tokens must be identical;
 4. serve Orpheus-3B (int8 weights, int8 KV cache, 8 slots x 8192) through
-   ``ServingRuntime`` and ``LocalTorchAdapter``: one ~2,500-token prompt
-   (three prefill chunks, decode bucket >= 2048, so the slot kernel runs)
-   and three short ones, 7 x 24 tokens each; streamed PCM is checked and
-   TTFA, tokens/s and real-time factor printed;
+   ``ServingRuntime`` and ``LocalTorchAdapter`` after ``engine.warmup``:
+   one ~2,500-token prompt (three prefill chunks, decode bucket >= 2048, so
+   the slot kernel runs) and three short ones, 7 x 24 tokens each, seeded;
+   a burst of 4 equal ~1,300-token prompts (two prefill chunks each), which
+   must run J-batched prefill rounds; then the first load again with
+   ``frames_per_dispatch=2``, whose traces must equal the first run's.
+   Each load prints ms per decode step, TTFA and real-time factor, and
+   runs once more under the torch profiler for the device's idle share;
 5. serve the 3B widths at 4 layers with a bf16 cache and
    ``attn_impl="kernel"``, so the layered kernel runs in decode;
 6. answer one ``POST /v1/audio/speech`` from the port's server on
-   localhost with a RIFF WAV.
+   localhost with a RIFF WAV, with the 3B runtime switched to the server's
+   ``attn_impl="auto"`` and warmed up for it: the short context's frames
+   must replay the CUDA graphs of the dense int8 attention branch.
 
-Kernel launch counts are zeroed just before phases 4 and 5 and read just
-after them.  The last lines are the card's name and power limit, one JSON
-line describing every kernel, and ``{"ok": true, "device": {...}}``.
-Without a CUDA card, or outside a checkout of the repository, it exits
-non-zero before printing any result.
+Kernel launch counts are zeroed just before the first run of phase 4 (the
+main path) and just before phase 5 and read just after each; launches inside replayed
+CUDA graphs are counted through each graph's tally.  The last lines are the
+card's name and power limit, one JSON line describing every kernel, and
+``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
+checkout of the repository, it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
@@ -47,8 +60,11 @@ H100_BYTES_PER_S = 3.35e12   # H100 SXM data sheet: HBM3 bandwidth
 H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
-    print(*a, flush=True)
+    print(f"[{time.perf_counter() - _T0:6.1f} s]", *a, flush=True)
 
 
 def card_line() -> str:
@@ -247,6 +263,78 @@ def phase_1b_heads(torch, da, dev) -> float:
     return err
 
 
+def phase_gemv(torch, dev):
+    """The int8 GEMV at the 3B weight shapes against its twin (M = 1, 8),
+    timed per call; returns its kernel record (times per decode step:
+    28 calls of each layer weight and one lm_head, at M = 8)."""
+    from project_morpheus_tpu_torch.model import LlamaConfig
+    from project_morpheus_tpu_torch.ops import int8_gemv as ig
+    from project_morpheus_tpu_torch.tools import time_kernels as tk
+
+    c = LlamaConfig.orpheus_3b()
+    D, L, HD = c.hidden_size, c.num_layers, c.head_dim
+    qkv = (c.num_heads + 2 * c.num_kv_heads) * HD
+    shapes = {"wqkv": (D, qkv, False, L), "wo": (c.num_heads * HD, D, False, L),
+              "wgu": (D, 2 * c.intermediate_size, False, L),
+              "wd": (c.intermediate_size, D, False, L),
+              "lm_head": (D, c.padded_vocab, True, 1)}
+    g = torch.Generator(device=dev).manual_seed(5)
+    recs, err = {}, 0.0
+    step = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    for name, (K, N, k_major, layers) in shapes.items():
+        wshape = (layers, N, K) if k_major else (layers, K, N)
+        q = torch.randint(-127, 128, wshape, generator=g, device=dev, dtype=torch.int8)
+        sc = torch.rand(layers, N, generator=g, device=dev) * 0.02 + 1e-3
+        wb = q.to(torch.bfloat16)  # the yardstick's pre-cast weight
+        for M in (1, 8):
+            h = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+            for i in {0, layers - 1}:
+                got = ig.int8_gemv(h, q[i], sc[i], k_major=k_major)
+                want = ig.int8_gemv_plain(h, q[i], sc[i], k_major).float()
+                torch.cuda.synchronize()
+                d = (got.float() - want).abs()
+                bad = d > 2.0**-6 * want.abs() + 1e-3  # two bf16 roundings apart, at most
+                if bool(bad.any()):
+                    raise AssertionError(f"int8 GEMV {name}, M={M}, layer {i}: "
+                                         f"{int(bad.sum())} values off, max err {d.max().item():.3e}")
+                err = max(err, d.max().item())
+            run = lambda i: ig.int8_gemv(h, q[i % layers], sc[i % layers], k_major=k_major)  # noqa: E731
+            twin = lambda i: ig.int8_gemv_plain(h, q[i % layers], sc[i % layers], k_major)  # noqa: E731
+            if k_major:
+                lib = lambda i: h @ wb[i % layers].T  # noqa: E731
+            else:
+                lib = lambda i: h @ wb[i % layers]  # noqa: E731
+            out_bytes = 4 if k_major else 2
+            b_ms, b_by = bound(K * N + 4 * N + 2 * M * K + out_bytes * M * N, 2.0 * M * K * N)
+            r = dict(K=K, N=N, M=M, device_ms=tk.graph_ms(run), host_us=tk.host_us(run),
+                     plain_ms=tk.graph_ms(twin), library_ms=tk.graph_ms(lib), bound_ms=b_ms,
+                     bound_by=b_by)
+            r["bound_frac"] = b_ms / r["device_ms"]
+            recs[f"{name}_m{M}"] = r
+            log(f"  int8_gemv [{name} {K}x{N}, M={M}]: device {r['device_ms'] * 1e3:.1f} us/call, "
+                f"host {r['host_us']:.1f} us/call, "
+                f"bound {b_ms * 1e3:.1f} us by {b_by} ({100 * r['bound_frac']:.1f}%), "
+                f"cast+matmul {r['plain_ms'] * 1e3:.1f} us, matmul on bf16 weight "
+                f"{r['library_ms'] * 1e3:.1f} us")
+            if M == 8:
+                for key, val in (("ms", r["device_ms"]), ("plain_ms", r["plain_ms"]),
+                                 ("library_ms", r["library_ms"]), ("bound_ms", b_ms)):
+                    step[key] += layers * val
+        del q, sc, wb
+        torch.cuda.empty_cache()
+    log(f"kernel int8_gemv: max_abs_err {err:.3e}; one 3B decode step's calls at M=8: "
+        f"{step['ms']:.3f} ms (bound {step['bound_ms']:.3f} ms, "
+        f"{100 * step['bound_ms'] / step['ms']:.1f}%), cast+matmul {step['plain_ms']:.3f} ms, "
+        f"matmul on bf16 weights {step['library_ms']:.3f} ms")
+    return dict(name="int8_gemv", route="cuda",
+                source="project_morpheus_tpu_torch/ops/csrc/int8_gemv.cu",
+                replaces="project_morpheus_tpu/model/quant.py:61 (XLA's fused dequant-dot, "
+                         "not a Pallas kernel)",
+                launches=0, max_abs_err=err, ms=step["ms"], plain_ms=step["plain_ms"],
+                bound_ms=step["bound_ms"], bound_by="bytes", library_ms=step["library_ms"],
+                shapes=recs)
+
+
 # ------------------------------------------------------------ phase 3
 
 
@@ -296,6 +384,21 @@ def phase_reference(torch, dev):
     return worst
 
 
+def phase_graphs(torch, dev) -> None:
+    """Seeded requests on a small int8 model: graph replay == eager."""
+    from project_morpheus_tpu_torch.tools import graph_check as gc
+
+    for temp in (0.0, 0.9):
+        (gt, gp), (et, ep) = gc.graph_and_eager_traces(dev, temp)
+        if gp.replays == 0 or ep.captures != 0:
+            raise AssertionError(f"graph engine replayed {gp.replays} programs, "
+                                 f"eager engine captured {ep.captures}")
+        if gt != et or any(len(t) != gc.MAX_TOKENS for t in gt):
+            raise AssertionError(f"graph vs eager traces differ at temperature {temp}")
+        log(f"graphs: temperature {temp}: {len(gt)} seeded traces of {gc.MAX_TOKENS} tokens "
+            f"identical replayed ({gp.captures} graphs, {gp.replays} replays) and eager")
+
+
 # ------------------------------------------------------------ phases 4-6
 
 
@@ -320,15 +423,64 @@ def check_pcm(np, pcm: bytes, hops: int, hop_bytes: int, what: str):
         raise AssertionError(f"{what}: silent PCM")
 
 
-async def serve(prompts, max_tokens):
+async def serve(prompts, max_tokens, seeds=None):
+    """Pull every prompt through its own adapter; returns ([(pcm, ttfa)],
+    wall seconds, [token trace of each request])."""
     from project_morpheus_tpu_torch.adapters.local_torch import LocalTorchAdapter
     from project_morpheus_tpu_torch.model.sampling import SamplingParams
 
-    sp = SamplingParams(max_tokens=max_tokens)
-    adapters = [LocalTorchAdapter(p, sampling=sp) for p in prompts]
+    seeds = seeds or [None] * len(prompts)
+    adapters = [LocalTorchAdapter(p, sampling=SamplingParams(max_tokens=max_tokens, seed=s))
+                for p, s in zip(prompts, seeds)]
     t0 = time.perf_counter()
     out = await asyncio.gather(*[pull_all(a) for a in adapters])
-    return out, time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    traces = []
+    for a in adapters:  # audio requests also queue their tokens, unread
+        q, toks = a._requests[0].token_queue, []
+        while not q.empty():
+            t = q.get_nowait()
+            if t is not None:
+                toks.append(t)
+        traces.append(toks)
+    return out, wall, traces
+
+
+async def measured_load(torch, engine, prompts, max_tokens, seeds, what, card):
+    """Serve one seeded load: ms per decode step, TTFA and real-time factor
+    on the host clock.  Returns ([(pcm, ttfa)], token traces)."""
+    steps0 = engine.steps
+    torch.cuda.synchronize()
+    out, wall, traces = await serve(prompts, max_tokens, seeds)
+    torch.cuda.synchronize()
+    steps = engine.steps - steps0
+    audio_s = sum(len(p) for p, _ in out) / 2 / 24000
+    log(f"serve 3b {what}: {len(prompts)} requests in {wall:.3f} s, {steps} decode steps "
+        f"({1e3 * wall / max(steps, 1):.2f} ms/step), TTFA "
+        f"{' / '.join(f'{t:.3f}' for _, t in out)} s, real-time factor {audio_s / wall:.3f} "
+        f"[{card}]")
+    return out, traces
+
+
+async def idle_share(torch, prompts, max_tokens, seeds, what, card) -> float:
+    """Serve the same seeded load again under the torch profiler (card
+    activity only): the device's idle share, 1 - (time any kernel or copy
+    ran) / wall."""
+    from project_morpheus_tpu_torch.tools.profile_serving import device_trace
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with device_trace() as trace:
+        _, wall, _ = await serve(prompts, max_tokens, seeds)
+        torch.cuda.synchronize()
+    busy = trace["busy_s"]
+    log(f"  {what}, profiled rerun: {wall:.3f} s, device busy {busy:.3f} s, idle share "
+        f"{100 * (1 - busy / wall):.1f}% (profiler start and trace read: "
+        f"{time.perf_counter() - t0 - wall:.1f} s) [{card}]")
+    return 1 - busy / wall
+
+
+HTTP_TEXT, HTTP_TOKENS = "Hello from the card.", 7 * 8
 
 
 async def phase_http(card, np):
@@ -337,7 +489,7 @@ async def phase_http(card, np):
 
     from project_morpheus_tpu_torch.server.app import create_app
 
-    runner = web.AppRunner(create_app(generation={"max_tokens": 7 * 8}))
+    runner = web.AppRunner(create_app(generation={"max_tokens": HTTP_TOKENS}))
     await runner.setup()
     site = web.TCPSite(runner, "127.0.0.1", 0)
     await site.start()
@@ -345,7 +497,7 @@ async def phase_http(card, np):
     try:
         async with aiohttp.ClientSession() as s:
             async with s.post(f"http://127.0.0.1:{port}/v1/audio/speech",
-                              json={"input": "Hello from the card.", "voice": "tara"}) as r:
+                              json={"input": HTTP_TEXT, "voice": "tara"}) as r:
                 status, ctype, body = r.status, r.headers.get("Content-Type"), await r.read()
     finally:
         await runner.cleanup()
@@ -363,8 +515,9 @@ async def serving_phases(card: str, records) -> None:
     from project_morpheus_tpu_torch.adapters import runtime as rt
     from project_morpheus_tpu_torch.model.tokenizer import format_prompt_ids
     from project_morpheus_tpu_torch.ops import decode_attention as da
+    from project_morpheus_tpu_torch.ops import int8_gemv as ig
     from project_morpheus_tpu_torch.tools.profile_serving import (
-        LONG_PROMPT, PROMPTS, TOKENS_PER_REQUEST, serving_runtime)
+        BURST_PROMPT, LONG_PROMPT, PROMPTS, TOKENS_PER_REQUEST, serving_runtime, warm)
 
     # phase 4: the 3B int8 serving path (the workload profile_serving traces)
     t0 = time.perf_counter()
@@ -373,26 +526,64 @@ async def serving_phases(card: str, records) -> None:
     log(f"3b runtime built in {time.perf_counter() - t0:.1f} s "
         f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card)")
     prompts = list(PROMPTS)
+    seeds = [100 + i for i in range(len(prompts))]
     n_long = len(format_prompt_ids(LONG_PROMPT, "tara"))
     if not 2048 < n_long <= 3072:
         raise AssertionError(f"long prompt is {n_long} tokens")
-    da.reset_launch_counts()
-    out, wall = await serve(prompts, TOKENS_PER_REQUEST)
-    torch.cuda.synchronize()
-    launches = dict(da.LAUNCHES)
+    eng = rt3.engine
+    n, secs = warm(eng)
+    log(f"warmup (frames_per_dispatch=1): {n} programs in {secs:.2f} s, "
+        f"{eng.programs.captures} CUDA graphs captured")
     fs = rt3.snac_cfg.frame_samples
+
+    da.reset_launch_counts()
+    ig.reset_launch_counts()
+    out, traces1 = await measured_load(torch, eng, prompts, TOKENS_PER_REQUEST, seeds,
+                                       "k=1 (main path)", card)
+    launches = {**da.LAUNCHES, **ig.LAUNCHES}
     for i, (pcm, _) in enumerate(out):
         check_pcm(np, pcm, TOKENS_PER_REQUEST // 7, 2 * fs, f"3b request {i}")
-    if launches["decode_attention_int8_slots"] <= 0:
-        raise AssertionError(f"3b int8 decode never launched the slot kernel: {launches}")
+    for name in ("decode_attention_int8_slots", "int8_gemv"):
+        if launches[name] <= 0:
+            raise AssertionError(f"3b int8 serving never launched {name}: {launches}")
     records[0]["launches"] = launches["decode_attention_int8_slots"]
-    audio_s = sum(len(p) for p, _ in out) / 2 / 24000
-    ttfa = [t for _, t in out]
-    log(f"serve 3b int8/int8-KV: {len(prompts)} requests (long prompt {n_long} tokens), "
-        f"TTFA {' / '.join(f'{t:.3f}' for t in ttfa)} s, "
-        f"{len(prompts) * TOKENS_PER_REQUEST / wall:.1f} tokens/s, "
-        f"real-time factor {audio_s / wall:.3f} ({audio_s:.2f} s audio in {wall:.2f} s), "
-        f"decode steps {rt3.engine.steps}, launches {launches} [{card}]")
+    records[2]["launches"] = launches["int8_gemv"]
+    log(f"  main path launches (graph replays counted) {launches}, graphs replayed "
+        f"{eng.programs.replays} [{card}]")
+    await idle_share(torch, prompts, TOKENS_PER_REQUEST, seeds, "k=1", card)
+
+    # a cold burst of equal long prompts: J-batched prefill rounds
+    rounds0 = dict(eng.prefill_rounds)
+    burst = [BURST_PROMPT] * 4
+    burst_seeds = [200 + i for i in range(4)]
+    what = f"burst of 4 x {len(format_prompt_ids(BURST_PROMPT, 'tara'))}-token prompts"
+    outb, _ = await measured_load(torch, eng, burst, 7 * 12, burst_seeds, what, card)
+    for i, (pcm, _) in enumerate(outb):
+        check_pcm(np, pcm, 12, 2 * fs, f"burst request {i}")
+    batched = {j: c - rounds0.get(j, 0) for j, c in eng.prefill_rounds.items()
+               if j > 1 and c > rounds0.get(j, 0)}
+    if not batched:
+        raise AssertionError(f"the burst ran no J-batched prefill round: {dict(eng.prefill_rounds)}")
+    log(f"  J-batched prefill rounds in the burst (width: rounds): {batched}")
+    await idle_share(torch, burst, 7 * 12, burst_seeds, "burst", card)
+
+    # the same seeded load, up to two frames a dispatch
+    eng.frames_per_dispatch = 2
+    n, secs = warm(eng, PROMPTS, burst=1)
+    log(f"warmup (frames_per_dispatch=2): {n} programs in {secs:.2f} s, "
+        f"{eng.programs.captures} CUDA graphs captured in all")
+    out2, traces2 = await measured_load(torch, eng, prompts, TOKENS_PER_REQUEST, seeds, "k=2",
+                                        card)
+    if traces2 != traces1 or any(len(t) == 0 for t in traces1):
+        where = [(len(a), len(b), next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None))
+                 for a, b in zip(traces1, traces2)]
+        raise AssertionError("seeded traces differ between frames_per_dispatch 1 and 2 "
+                             f"(lengths and first differing index per request: {where})")
+    same_pcm = all(a[0] == b[0] for a, b in zip(out, out2))
+    log(f"  k=2 traces identical to k=1 ({sum(map(len, traces1))} tokens); "
+        f"PCM identical: {same_pcm}")
+    await idle_share(torch, prompts, TOKENS_PER_REQUEST, seeds, "k=2", card)
+    eng.frames_per_dispatch = 1
 
     # phase 5: bf16 cache, kernel attention, 3B widths at 4 layers
     os.environ["ORPHEUS_KV_QUANT"] = "bfloat16"
@@ -400,7 +591,7 @@ async def serving_phases(card: str, records) -> None:
                             banded_sampling=True)
     rt.set_runtime(rt4)
     da.reset_launch_counts()
-    out4, wall4 = await serve(["Bf16 cache decode.", "Second stream."], 7 * 8)
+    out4, wall4, _ = await serve(["Bf16 cache decode.", "Second stream."], 7 * 8)
     torch.cuda.synchronize()
     launches4 = dict(da.LAUNCHES)
     for i, (pcm, _) in enumerate(out4):
@@ -413,8 +604,20 @@ async def serving_phases(card: str, records) -> None:
     await rt4.engine.close()
 
     # phase 6: one HTTP request through the port's server (3B int8 runtime)
+    # under the server's attention choice: a short context stays below
+    # pallas_min_bucket, so its frames replay the dense int8 branch's graphs
     rt.set_runtime(rt3)
+    eng.attn_impl = "auto"
+    n, secs = warm(eng, [HTTP_TEXT], burst=1)
+    replayed0 = dict(eng.programs.replayed)
     await phase_http(card, np)
+    dense = {key: c - replayed0.get(key, 0) for key, c in eng.programs.replayed.items()
+             if key[1] == "dense" and c > replayed0.get(key, 0)}
+    if not dense:
+        raise AssertionError(f"the HTTP request replayed no dense frame program: "
+                             f"{dict(eng.programs.replayed)}")
+    log(f"  attn_impl auto: warmup {n} programs in {secs:.2f} s; dense frame programs "
+        f"replayed (bucket, attn, steps, frames, ...: replays) {dense} [{card}]")
     await rt3.engine.close()
 
 
@@ -436,15 +639,17 @@ def run(card: str) -> None:
 
     records = phase_kernels(torch, da, dev)
     phase_1b_heads(torch, da, dev)
+    records.append(phase_gemv(torch, dev))
     phase_reference(torch, dev)
+    phase_graphs(torch, dev)
 
     asyncio.run(serving_phases(card, records))
 
-    log(card)
-    log(json.dumps({"kernels": records}))
-    log(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                           "kind": torch.cuda.get_device_name(0),
-                                           "count": torch.cuda.device_count()}}))
+    print(card)
+    print(json.dumps({"kernels": records}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
 
 
 def main() -> int:

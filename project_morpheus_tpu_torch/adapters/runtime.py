@@ -7,7 +7,7 @@ configuration (port of adapters/runtime.py):
 - ``ORPHEUS_MAX_SLOTS`` / ``ORPHEUS_MAX_SEQ``: engine geometry.
 
 Weights are random, drawn on the device from a seeded generator (tiny in
-fp32, others in bf16); the SNAC weights come from the same seeded numpy
+fp32 on the CPU, everything else in bf16); the SNAC weights come from the same seeded numpy
 state as the JAX runtime's.  Checkpoint loading is not ported yet.
 """
 from __future__ import annotations
@@ -69,7 +69,10 @@ class ServingRuntime:
         if self.num_layers is not None:
             cfg = dataclasses.replace(cfg, num_layers=self.num_layers)
         self.model_cfg = cfg
-        dtype = torch.float32 if size == "tiny" else torch.bfloat16
+        # on the card every size runs in bf16, the activation dtype the
+        # CUDA kernels take
+        on_cpu = self.device.type == "cpu"
+        dtype = torch.float32 if size == "tiny" and on_cpu else torch.bfloat16
         params = init_llama_params(cfg, 0, self.device, dtype)
         if os.environ.get("ORPHEUS_QUANT", "").lower() == "int8":
             params = quantize_params_int8(params)

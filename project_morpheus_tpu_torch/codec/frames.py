@@ -26,6 +26,7 @@ import re
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 FRAME_TOKENS = 7          # tokens per codec frame
 CODEBOOK_SIZE = 4096      # codes per SNAC codebook level
@@ -85,13 +86,15 @@ def tokens_to_codes(tokens: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndar
     (codes0, codes1, codes2) with trailing dims ``n, 2n, 4n`` — the coarse,
     medium and fine codebook timelines (reference speechpipe.py:84-98).
 
-    Works on numpy arrays and torch tensors (pure reshape/slice).
+    Works on numpy arrays and torch tensors (reshapes, slices and one
+    concatenation: no index list, which a captured CUDA graph cannot take).
     """
     n = tokens.shape[-1] // FRAME_TOKENS
     frames = tokens[..., : n * FRAME_TOKENS].reshape(*tokens.shape[:-1], n, FRAME_TOKENS)
     codes0 = frames[..., 0]
-    codes1 = frames[..., [1, 4]].reshape(*tokens.shape[:-1], 2 * n)
-    codes2 = frames[..., [2, 3, 5, 6]].reshape(*tokens.shape[:-1], 4 * n)
+    codes1 = frames[..., 1::3].reshape(*tokens.shape[:-1], 2 * n)  # positions 1, 4
+    cat = torch.cat if isinstance(tokens, torch.Tensor) else np.concatenate
+    codes2 = cat([frames[..., 2:4], frames[..., 5:7]], -1).reshape(*tokens.shape[:-1], 4 * n)
     return codes0, codes1, codes2
 
 

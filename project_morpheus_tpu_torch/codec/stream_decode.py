@@ -49,9 +49,10 @@ def init_stream_state(cfg: SNACConfig, batch: int, device="cuda",
 
 
 def reset_lanes(state: State, lane_mask: torch.Tensor) -> State:
-    """Zero the tails of lanes where ``lane_mask`` is True, in place."""
+    """Zero the tails of lanes where ``lane_mask`` is True, in place (a
+    masked fill: no host sync)."""
     for v in state.values():
-        v[lane_mask] = 0.0
+        v.masked_fill_(lane_mask[:, None, None], 0.0)
     return state
 
 

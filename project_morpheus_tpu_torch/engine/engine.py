@@ -2,29 +2,35 @@
 (port of engine/engine.py).
 
 - A fixed **slot table** lives on the device: the KV cache, per-slot
-  lengths, activity, budgets, sampling parameters, token-presence masks and,
-  in audio mode, the per-slot code ring.  Torch updates it in place.
+  lengths, activity, budgets, sampling parameters and random streams,
+  token-presence masks and, in audio mode, the per-slot code ring.  Every
+  update is in place, so a captured frame program always reads the live
+  storage.
 - **Admission** turns every prompt into a chunked-prefill job whose chunk
-  plan is frozen at admission; at most one chunk runs between decode
-  frames, and the final chunk samples the first token.
-- **Decode** advances every active slot by ``steps_per_sync`` tokens per
-  dispatch, sampling per slot (temperature / top-p / repetition penalty)
-  with each slot's own generator.  Int8 caches at context buckets of
-  ``pallas_min_bucket`` and above attend through the CUDA slot kernel.
-- **Audio mode** pushes sampled codes into the device ring and, for every
-  lane that completed a codec frame, runs one batched streaming SNAC hop
-  with per-lane commit masks; the host ``StreamPlanner`` mirrors the
-  schedule so end-of-stream flush hops know their window.
+  plan is frozen at admission.  At most one chunk round runs between
+  decode frames; jobs in lockstep (a simultaneous burst) share one round
+  at a power-of-two width.  Final chunks sample the first tokens on the
+  device; they ride the next frame's readback.
+- **Decode** is one fused frame program (``_frame_program``) of
+  ``n_frames`` x ``steps_per_sync`` decode + sample + stop/budget + code
+  ring steps and, in audio mode, one batched streaming SNAC hop per frame
+  with per-lane commit masks; tokens, PCM and emit flags come back in one
+  readback.  On the card each program is a CUDA graph captured on first
+  use (``graphs.py``); ``warmup`` captures every program a workload can
+  reach.  ``frames_per_dispatch`` frames go in one dispatch once no stream
+  waits for admission or a first hop.
+- **Readback overlap**: the loop dispatches frame N, enqueues the copy of
+  its outputs into pinned host buffers, runs at most one prefill round,
+  and only then routes frame N-1, whose copy a worker thread awaited.
+  End-of-stream flush hops are routed in dispatch order without stalling.
 - **Eviction** (stop token, budget, cancel/barge-in) clears the slot;
   co-batched requests are untouched.
-
-The host loop is one asyncio task; per-request streams are asyncio queues.
-Each dispatch reads its tokens back before the next one starts (the JAX
-engine's readback overlap and multi-frame dispatch are not ported).
 """
 from __future__ import annotations
 
 import asyncio
+import collections
+import concurrent.futures
 import dataclasses
 import logging
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -34,10 +40,11 @@ import torch
 
 from ..codec.stream_decode import EMIT_SLOT, WINDOW_FRAMES, snac_stream_body
 from ..model.config import LlamaConfig, ORPHEUS_SPECIAL_TOKENS
-from ..model.llama import init_kv_cache, llama_decode_step, llama_prefill_chunk
+from ..model.llama import init_kv_cache, llama_decode_step, llama_prefill_chunk_batch
 from ..model.quant import fuse_layer_weights, is_quantized
 from ..model.sampling import SamplingParams, sample_logits
 from ..utils.device import resolve_device
+from .graphs import ProgramCache
 from .request import Request, RequestState
 
 _AUDIO_BASE = ORPHEUS_SPECIAL_TOKENS["audio_base"]
@@ -78,8 +85,10 @@ class EngineConfig:
     # weights only)
     prefill_w8a8: bool = True
     steps_per_sync: int = 0  # 0/auto -> 7 on the card (one SNAC frame), 1 elsewhere
-    # codec frames per dispatch: the port runs one (0 and 1 mean it);
-    # larger values raise until multi-frame dispatch is ported
+    # most codec frames per audio dispatch (0/auto -> 1, the JAX default):
+    # k frames go in one dispatch only while no prefill job or first token
+    # is pending, no free slot has a queued request and every stream has
+    # had its first hop; otherwise the dispatch runs one frame
     frames_per_dispatch: int = 0
     # backpressure: a slot whose consumer queue is this deep is gated out
     # of decode dispatches until the consumer drains
@@ -148,10 +157,6 @@ class OrpheusEngine:
         device="cuda",
     ) -> None:
         self.ecfg = engine_cfg or EngineConfig()
-        if self.ecfg.frames_per_dispatch > 1:
-            raise ValueError(
-                f"frames_per_dispatch={self.ecfg.frames_per_dispatch}: multi-frame dispatch "
-                "is not ported; the engine runs one codec frame per dispatch (use 0 or 1)")
         self.device = resolve_device(device)
         # serving-time projection fusion (wqkv / wgu), numerically identical
         self.params = fuse_layer_weights(_tree_to(params, self.device))
@@ -175,10 +180,14 @@ class OrpheusEngine:
         self.temp = torch.zeros(B, dtype=torch.float32, device=dev)
         self.top_p = torch.ones(B, dtype=torch.float32, device=dev)
         self.rep_pen = torch.ones(B, dtype=torch.float32, device=dev)
-        # per-slot sampling generators, reseeded at every admission
-        self._gens = [torch.Generator(device=dev) for _ in range(B)]
-        self._temp_host = [0.0] * B
+        # per-slot random streams (model/sampling.py): set at admission;
+        # a slot's draw counter advances on the steps where it emits
+        self.seeds = torch.zeros(B, dtype=torch.int64, device=dev)
+        self.draws = torch.zeros(B, dtype=torch.int64, device=dev)
         self._seed_gen = torch.Generator().manual_seed(seed)
+        # static inputs of the frame programs
+        self._gate = torch.ones(B, dtype=torch.bool, device=dev)
+        self._rows = torch.arange(B, device=dev)
         self._snac_state = None
         if self._codec is not None:
             from ..codec.stream_decode import init_stream_state
@@ -189,20 +198,39 @@ class OrpheusEngine:
             self.fcnt = torch.zeros(B, **i32)
             self.audio_pos = torch.zeros(B, **i32)
             self.frame_done = torch.zeros(B, dtype=torch.bool, device=dev)
+            self._frame_lanes = torch.arange(_FRAME_TOKENS, device=dev)
             self._snac_state = init_stream_state(self._codec[1], B, dev)
         self.attn_impl = self.ecfg.attn_impl
         self.steps_per_sync = self.ecfg.steps_per_sync
         if self.steps_per_sync <= 0:
             self.steps_per_sync = 7 if self.device.type == "cuda" else 1
+        self.frames_per_dispatch = max(1, self.ecfg.frames_per_dispatch)
+        self._stop_ids = tuple(sorted(self.ecfg.default_stop_ids))
+        self.programs = ProgramCache(self.device)
         self._free: List[int] = list(range(B))
         self._by_slot: Dict[int, Request] = {}
         self._prefill_jobs: List[dict] = []
         self._pending_lane_resets: set = set()
+        # first tokens sampled by a prefill, still on the device:
+        # (slot, req, (1,) device tensor), read back with the next frame
+        self._pending_first: List[tuple] = []
+        # end-of-stream flush hops in dispatch order: ("pcm", future,
+        # [(slot, req, window_slot)]) or ("eos", req)
+        self._pending_audio: List[tuple] = []
+        # frame readbacks and flush-hop readbacks wait on their CUDA events
+        # here, off the event loop
+        self._readback_pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=2, thread_name_prefix="engine-readback")
+        # two sets of pinned host buffers: two frames are in flight
+        self._host_sets: List[Dict[tuple, torch.Tensor]] = [{}, {}]
+        self._host_turn = 0
         self._pending: "asyncio.Queue[Request]" = asyncio.Queue()
         self._wake = asyncio.Event()
         self._task: Optional[asyncio.Task] = None
         self._closed = False
         self.steps = 0
+        # prefill rounds run, by width J
+        self.prefill_rounds: collections.Counter = collections.Counter()
 
     # ------------------------------------------------------------------ api
 
@@ -244,12 +272,76 @@ class OrpheusEngine:
         self._wake.set()
         if self._task is not None:
             await self._task
+        self._readback_pool.shutdown(wait=False)
+
+    @torch.no_grad()
+    def warmup(self, prompt_lens: Sequence[int] = (), max_new_tokens: int = 0,
+               burst: int = 1) -> int:
+        """Build the CUDA kernels and run every serving program a workload
+        of ``prompt_lens`` x ``max_new_tokens`` can reach: each prefill
+        shape once at the power-of-two widths J up to ``burst``, and each
+        frame program of every context bucket a stream crosses, at k = 1
+        and ``frames_per_dispatch`` (on the card, captured as CUDA graphs).
+
+        Uses the chunk plan and bucket arithmetic of serving, runs on the
+        idle slot table with every lane inactive and releases every slot
+        afterwards.  Returns the number of programs exercised."""
+        assert not self._by_slot and self._pending.empty(), "warmup must run on an idle engine"
+        if self.device.type == "cuda":
+            from ..ops import build
+
+            build.build_all()
+        n, k_max = self.steps_per_sync, self.frames_per_dispatch
+        top_bucket = max(self.ecfg.prefill_buckets)
+        cbuckets = sorted(b for b in self.ecfg.context_buckets if b <= self.ecfg.max_seq_len)
+        burst = max(1, min(burst, self.ecfg.max_slots))
+        js = {1 << i for i in range(burst.bit_length()) if (1 << i) <= burst}
+        audio = self._codec is not None
+        ks = sorted({1, k_max}) if audio else [1]
+        chunk_programs, frame_programs = set(), set()
+        for L in prompt_lens:
+            L = min(L, self.ecfg.max_seq_len - 4)
+            if L <= top_bucket:
+                rb = _bucket_for(L, self.ecfg.prefill_buckets)
+                chunk_programs.update((rb, self._hist_bucket(rb), True, j) for j in js)
+            else:
+                for fine in (True, False):
+                    for _off, clen, hist, final in self._plan_chunks(L, fine):
+                        chunk_programs.update((clen, hist, final, j) for j in js)
+            lag = n + n * k_max + 2
+            start = min(L + lag, self.ecfg.max_seq_len)
+            end = min(L + max_new_tokens + lag, self.ecfg.max_seq_len)
+            for b in cbuckets:
+                if b >= start:
+                    frame_programs.update((b, k) for k in ks)
+                if b >= end:
+                    break
+        for clen, hist, final, j in sorted(chunk_programs):
+            jobs = [{"ids": [0], "offset": 0, "slot": s, "seed": 0, "allowed": 1,
+                     "audio": False, "samp": (0.6, 0.9, 1.1),
+                     "stops": np.full((_MAX_CUSTOM_STOPS,), -1, np.int32)} for s in range(j)]
+            self._prefill_round(jobs, clen, hist, final)
+        self._gate.fill_(True)
+        for b, k in sorted(frame_programs):
+            self._run_program(b, k, audio)
+        self._release_all()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return len(chunk_programs) + len(frame_programs)
 
     # ------------------------------------------------------------ internals
 
     def _ensure_running(self) -> None:
         if self._task is None or self._task.done():
             self._task = asyncio.get_event_loop().create_task(self._run())
+
+    def _to_dev(self, values, dtype) -> torch.Tensor:
+        """A small host array on the device, without waiting for the
+        device: pinned memory and a non-blocking copy on the card."""
+        t = torch.as_tensor(np.asarray(values)).to(dtype)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _guarded_admit(self, req: Request) -> None:
         """An admission failure fails that request, not the engine task."""
@@ -265,24 +357,33 @@ class OrpheusEngine:
             if req.audio:
                 req.pcm_queue.put_nowait(None)
 
-    def _evict(self, slot: int) -> None:
-        """Free one slot's device state; other slots are untouched."""
-        self.active[slot] = False
-        self.lengths[slot] = 0
-        self.remaining[slot] = 0
-        self.is_audio[slot] = False
-        self.custom_stops[slot] = -1
-        self.presence[slot] = False
+    def _clear_slots(self, sel) -> None:
+        """Reset the slot-table rows ``sel`` (an int or ``slice(None)``)."""
+        self.active[sel] = False
+        self.lengths[sel] = 0
+        self.remaining[sel] = 0
+        self.is_audio[sel] = False
+        self.custom_stops[sel] = -1
+        self.presence[sel] = False
         if self._codec is not None:
             for t in (self.ring, self.partial, self.pcnt, self.fcnt, self.audio_pos):
-                t[slot] = 0
-            self.frame_done[slot] = False
+                t[sel] = 0
+            self.frame_done[sel] = False
+
+    def _evict(self, slot: int) -> None:
+        """Free one slot's device state; other slots are untouched."""
+        self._clear_slots(slot)
         self._by_slot.pop(slot, None)
         if slot not in self._free:
             self._free.append(slot)
 
+    def _release_all(self) -> None:
+        self._clear_slots(slice(None))
+        self.seeds.zero_()
+        self.draws.zero_()
+
     def _admit(self, req: Request) -> None:
-        # the seed fixes the slot's whole sampling chain
+        # the seed fixes the slot's whole sampling stream
         if req.sampling.seed is not None:
             seed = int(req.sampling.seed) & 0xFFFFFFFF
         else:
@@ -313,12 +414,15 @@ class OrpheusEngine:
             custom = custom[:_MAX_CUSTOM_STOPS]
         stops = np.full((_MAX_CUSTOM_STOPS,), -1, np.int32)
         stops[: len(custom)] = custom
+        sp = req.sampling
         # chunk plan frozen at admission: fine rounds only when some stream
-        # is already decoding
+        # is already decoding.  No dispatch here: a burst admits whole, so
+        # its jobs stay in lockstep and share rounds.
         fine = any(r.state is RequestState.DECODING for r in self._by_slot.values())
-        self._prefill_jobs.append({"req": req, "slot": slot, "ids": list(ids),
-                                   "offset": 0, "stops": stops, "seed": seed,
-                                   "fine": fine})
+        self._prefill_jobs.append({
+            "req": req, "slot": slot, "ids": list(ids), "offset": 0, "stops": stops,
+            "seed": seed, "fine": fine, "allowed": req.allowed, "audio": req.audio,
+            "samp": (sp.temperature, sp.top_p, sp.repetition_penalty)})
 
     def _hist_bucket(self, need: int) -> int:
         """Smallest history bucket covering ``need`` positions."""
@@ -353,81 +457,97 @@ class OrpheusEngine:
         raise AssertionError(f"offset {job['offset']} not on the chunk plan")
 
     def _advance_prefill(self) -> None:
-        """Run at most ONE prefill chunk (of the oldest live job); a final
-        chunk samples and routes the first token."""
+        """Run at most ONE chunk round: the oldest live job and every job in
+        lockstep with it (same next chunk), at the largest power-of-two
+        width the group fills.  Final rounds leave their first tokens on
+        the device in ``_pending_first``.  Prefill rounds run eagerly, so a
+        width that ``warmup`` did not run compiles nothing."""
         if self._pending_lane_resets:
             from ..codec.stream_decode import reset_lanes
 
-            mask = torch.zeros(self.ecfg.max_slots, dtype=torch.bool)
+            mask = np.zeros((self.ecfg.max_slots,), bool)
             mask[sorted(self._pending_lane_resets)] = True
             self._pending_lane_resets.clear()
-            reset_lanes(self._snac_state, mask.to(self.device))
+            reset_lanes(self._snac_state, self._to_dev(mask, torch.bool))
         self._prefill_jobs = [
             j for j in self._prefill_jobs
             if not j["req"].done and self._by_slot.get(j["slot"]) is j["req"]
         ]
         if not self._prefill_jobs:
             return
-        job = self._prefill_jobs[0]
-        final, clen, hist = self._job_next(job)
-        req, slot, offset = job["req"], job["slot"], job["offset"]
-        part = job["ids"][offset: offset + clen]
-        padded = torch.zeros(clen, dtype=torch.int32)
-        padded[: len(part)] = torch.as_tensor(part, dtype=torch.int32)
-        padded = padded.to(self.device)
-        logits = llama_prefill_chunk(
-            self.params, padded, self.cfg, self.cache, offset, slot, len(part),
-            hist_bucket=hist, w8a8=self._w8a8)
-        # this chunk's real tokens count as seen for the repetition penalty
-        self.presence[slot, padded[: len(part)].long()] = True
+        desc = self._job_next(self._prefill_jobs[0])
+        group = [j for j in self._prefill_jobs if self._job_next(j) == desc]
+        group = group[: 1 << (len(group).bit_length() - 1)]
+        final, clen, hist = desc
+        first = self._prefill_round(group, clen, hist, final)
         if not final:
-            job["offset"] += clen
+            for job in group:
+                job["offset"] += clen
             return
-        self._prefill_jobs.pop(0)
-        first = self._sample_first(job, logits, offset + len(part))
-        req.state = RequestState.DECODING
-        self._route_batch([(slot, req, first)], {slot: req})
+        for i, job in enumerate(group):
+            job["req"].state = RequestState.DECODING
+            self._pending_first.append((job["slot"], job["req"], first[i:i + 1]))
+        done = {id(j) for j in group}
+        self._prefill_jobs = [j for j in self._prefill_jobs if id(j) not in done]
 
-    def _sample_first(self, job, logits, ctx_len: int) -> int:
-        """Sample the first token from the prompt's last logits and seed the
-        slot's serving state."""
-        req, slot = job["req"], job["slot"]
-        sp = req.sampling
-        dev = self.device
-        gen = self._gens[slot]
-        gen.manual_seed(job["seed"])
-        self._temp_host[slot] = float(sp.temperature)
-        if self.ecfg.banded_sampling:  # first audio code samples from band 0
-            logits = _band_mask_logits(
-                logits[None], torch.tensor([req.audio], device=dev),
-                torch.zeros(1, dtype=torch.int32, device=dev))[0]
-        f32 = dict(dtype=torch.float32, device=dev)
-        first = int(sample_logits(
-            logits[None],
-            [gen if sp.temperature > 0 else None],
-            temperature=torch.tensor([sp.temperature], **f32),
-            top_p=torch.tensor([sp.top_p], **f32),
-            repetition_penalty=torch.tensor([sp.repetition_penalty], **f32),
-            presence=self.presence[slot][None],
-            vocab_size=self.cfg.vocab_size,
-        )[0])
-        self.presence[slot, first] = True
-        self.lengths[slot] = ctx_len
-        self.last_tokens[slot] = first
-        self.temp[slot] = sp.temperature
-        self.top_p[slot] = sp.top_p
-        self.rep_pen[slot] = sp.repetition_penalty
-        self.active[slot] = req.allowed > 1
-        self.remaining[slot] = req.allowed - 1
-        self.is_audio[slot] = req.audio
-        self.custom_stops[slot] = torch.as_tensor(job["stops"], device=dev)
-        if self._codec is not None and req.audio:
-            # the first code enters the device ring as a decode step's would
-            code = self._host_code(first, 0)
-            if code is not None:
-                self.partial[slot, 0] = code
-                self.pcnt[slot] += 1
-                self.audio_pos[slot] += 1
+    @torch.no_grad()
+    def _prefill_round(self, group: List[dict], clen: int, hist: int,
+                       sample: bool) -> Optional[torch.Tensor]:
+        """One chunk of each job in ``group`` (all at the same chunk width
+        and history bucket) in one batched pass; a final round samples each
+        job's first token and seeds its slot, all on the device.  Returns
+        the (J,) first tokens, or None."""
+        J = len(group)
+        toks = np.zeros((J, clen), np.int32)
+        lens = []
+        for i, job in enumerate(group):
+            part = job["ids"][job["offset"]: job["offset"] + clen]
+            toks[i, : len(part)] = part
+            lens.append(len(part))
+        toks_d = self._to_dev(toks, torch.int32)
+        slots = [job["slot"] for job in group]
+        offsets = [job["offset"] for job in group]
+        logits = llama_prefill_chunk_batch(
+            self.params, toks_d, self.cfg, self.cache, offsets, slots, lens,
+            hist_bucket=hist, w8a8=self._w8a8)
+        self.prefill_rounds[J] += 1
+        # each chunk's real tokens count as seen for the repetition penalty
+        for i, (slot, n) in enumerate(zip(slots, lens)):
+            self.presence[slot, toks_d[i, :n].long()] = True
+        if not sample:
+            return None
+        # per job: slot, context length, budget, audio flag, seed, stop ids
+        ints = np.asarray(
+            [[job["slot"], job["offset"] + n, job["allowed"], int(job["audio"]), job["seed"],
+              *job["stops"]] for job, n in zip(group, lens)], np.int64)
+        ints = self._to_dev(ints, torch.int64)
+        samp = self._to_dev(np.asarray([job["samp"] for job in group], np.float32),
+                            torch.float32)
+        sl, audio = ints[:, 0], ints[:, 3].bool()
+        if self.ecfg.banded_sampling:  # first audio codes sample from band 0
+            logits = _band_mask_logits(logits, audio, torch.zeros_like(ints[:, 0]))
+        first = sample_logits(
+            logits, ints[:, 4], torch.zeros_like(ints[:, 4]), temperature=samp[:, 0],
+            top_p=samp[:, 1], repetition_penalty=samp[:, 2], presence=self.presence[sl],
+            vocab_size=self.cfg.vocab_size)
+        self.presence[sl, first.long()] = True
+        self.lengths[sl] = ints[:, 1].int()
+        self.last_tokens[sl] = first
+        self.temp[sl] = samp[:, 0]
+        self.top_p[sl] = samp[:, 1]
+        self.rep_pen[sl] = samp[:, 2]
+        self.active[sl] = ints[:, 2] > 1
+        self.remaining[sl] = (ints[:, 2] - 1).int()
+        self.is_audio[sl] = audio
+        self.custom_stops[sl] = ints[:, 5:].int()
+        self.seeds[sl] = ints[:, 4]
+        self.draws[sl] = 1
+        if self._codec is not None:
+            # the first codes enter the ring as a decode step's would: a (B,)
+            # token row with -1 for the slots outside the group
+            row = torch.full((self.ecfg.max_slots,), -1, dtype=torch.int32, device=self.device)
+            row[sl] = first
+            self._ring_push(row, self.ecfg.lenient_audio_codes)
         return first
 
     def _host_code(self, token: int, audio_pos: int) -> Optional[int]:
@@ -455,20 +575,20 @@ class OrpheusEngine:
             req.token_queue.put_nowait(None)
 
     def _context_bucket(self, n_steps: int) -> Optional[int]:
-        """Smallest bucket covering every live context through this dispatch."""
+        """Smallest bucket covering every live context through this
+        dispatch: host counts lag the device by up to one frame in flight
+        and one pending first token, as in the JAX engine."""
         if not self._by_slot:
             return None
-        # the same headroom as the JAX engine (which also covers one frame
-        # still in flight), so both pick the same bucket
         need = (max(r.ctx_len + r.generated for r in self._by_slot.values())
-                + n_steps + self.steps_per_sync + 2)
+                + n_steps + self.steps_per_sync * self.frames_per_dispatch + 2)
         need = min(need, self.ecfg.max_seq_len)
         for b in sorted(self.ecfg.context_buckets):
             if need <= b <= self.ecfg.max_seq_len:
                 return b
         return None  # full allocated context
 
-    def _backpressure_gate(self) -> Optional[torch.Tensor]:
+    def _backpressure_gate(self) -> Optional[np.ndarray]:
         """(B,) bool gate from consumer-queue depth, or None when no live
         slot can take a frame."""
         gate = np.ones((self.ecfg.max_slots,), bool)
@@ -480,9 +600,7 @@ class OrpheusEngine:
                 gate[slot] = False
             elif req.state is RequestState.DECODING:
                 any_ready = True
-        if not any_ready:
-            return None
-        return torch.as_tensor(gate, device=self.device)
+        return gate if any_ready else None
 
     def _attn_for(self, bucket: Optional[int]) -> str:
         """Resolve attn_impl="auto": on the card, int8 caches at long
@@ -496,96 +614,161 @@ class OrpheusEngine:
             return "kernel"
         return "dense"
 
-    # ----------------------------------------------------------- the step
+    # -------------------------------------------------- the frame program
 
-    def _decode_core(self, gate, attn_impl: str, bucket, banded: bool):
+    def _decode_core(self, attn_impl: str, bucket, banded: bool):
         """One decode + sample step over the slot table; returns (B,) tokens,
-        -1 on lanes that did not emit.  Each lane's generator advances only
-        on steps where the lane emits."""
-        active = self.active & gate
+        -1 on lanes that did not emit.  A lane's draw counter advances only
+        on steps where it emits."""
+        active = self.active & self._gate
         logits = llama_decode_step(self.params, self.last_tokens, self.cfg, self.cache,
                                    self.lengths, active=active, attn_impl=attn_impl,
                                    bucket=bucket)
         if banded:
             logits = _band_mask_logits(logits, self.is_audio, self.audio_pos)
-        act = active.tolist()
-        gens = [g if a and t > 0 else None
-                for g, a, t in zip(self._gens, act, self._temp_host)]
-        toks = sample_logits(logits, gens, temperature=self.temp, top_p=self.top_p,
-                             repetition_penalty=self.rep_pen, presence=self.presence,
-                             vocab_size=self.cfg.vocab_size)
+        toks = sample_logits(logits, self.seeds, self.draws, temperature=self.temp,
+                             top_p=self.top_p, repetition_penalty=self.rep_pen,
+                             presence=self.presence, vocab_size=self.cfg.vocab_size)
         toks = torch.where(active, toks, torch.zeros_like(toks))
-        rows = torch.arange(toks.shape[0], device=self.device)
-        seen = self.presence[rows, toks.long()]
-        self.presence[rows, toks.long()] = seen | active
-        self.lengths += active.to(torch.int32)
-        self.last_tokens = torch.where(active, toks, self.last_tokens)
+        idx = (self._rows, toks.long())
+        self.presence[idx] = self.presence[idx] | active
+        self.lengths.add_(active.to(torch.int32))
+        self.draws.add_(active.to(torch.int64))
+        self.last_tokens.copy_(torch.where(active, toks, self.last_tokens))
         return torch.where(active, toks, torch.full_like(toks, -1))
 
-    def _post_step(self, toks, stop_ids: Tuple[int, ...]) -> None:
+    def _post_step(self, toks) -> None:
         """A lane stops on a default or custom stop id or an exhausted budget."""
         emitted = toks >= 0
         is_stop = emitted & (toks[:, None] == self.custom_stops).any(dim=1)
-        for s in stop_ids:
+        for s in self._stop_ids:
             is_stop = is_stop | (toks == s)
-        self.remaining -= emitted.to(torch.int32)
-        self.active = self.active & ~is_stop & (self.remaining > 0)
+        self.remaining.sub_(emitted.to(torch.int32))
+        self.active.copy_(self.active & ~is_stop & (self.remaining > 0))
 
     def _ring_push(self, toks, lenient: bool) -> None:
         """Append one step's codes to the per-slot device code ring; at most
-        one frame completes per slot per dispatch."""
+        one frame completes per slot per frame phase."""
         valid, code = _audio_code(toks, self.audio_pos, lenient)
         valid = valid & self.is_audio  # text lanes never enter the ring
-        sel = torch.arange(_FRAME_TOKENS, device=self.device)[None, :] == self.pcnt[:, None]
+        sel = self._frame_lanes[None, :] == self.pcnt[:, None]
         partial = torch.where(valid[:, None] & sel, code[:, None], self.partial)
         pcnt2 = self.pcnt + valid.to(torch.int32)
         done = pcnt2 >= _FRAME_TOKENS
-        self.ring = torch.where(
-            done[:, None], torch.cat([self.ring[:, _FRAME_TOKENS:], partial], dim=1), self.ring)
-        self.partial = torch.where(done[:, None], torch.zeros_like(partial), partial)
-        self.pcnt = torch.where(done, torch.zeros_like(pcnt2), pcnt2)
-        self.fcnt = self.fcnt + done.to(torch.int32)
-        self.audio_pos = self.audio_pos + valid.to(torch.int32)
-        self.frame_done = self.frame_done | done
+        shifted = torch.cat([self.ring[:, _FRAME_TOKENS:], partial], dim=1)
+        self.ring.copy_(torch.where(done[:, None], shifted, self.ring))
+        self.partial.copy_(torch.where(done[:, None], torch.zeros_like(partial), partial))
+        self.pcnt.copy_(torch.where(done, torch.zeros_like(pcnt2), pcnt2))
+        self.fcnt.add_(done.to(torch.int32))
+        self.audio_pos.add_(valid.to(torch.int32))
+        self.frame_done.logical_or_(done)
+
+    def _snac_hop(self, window, commit):
+        """One batched streaming SNAC hop; the codec state moves in place."""
+        snac_params, snac_cfg = self._codec
+        pcm, new_state = snac_stream_body(snac_params, window, self._snac_state, commit,
+                                          cfg=snac_cfg)
+        for name, t in new_state.items():
+            self._snac_state[name].copy_(t)
+        return pcm
+
+    def _frame_program(self, *, bucket, attn: str, n_steps: int, n_frames: int,
+                       audio: bool, banded: bool, lenient: bool) -> tuple:
+        """The fused frame program (JAX ``_decode_audio_multi`` /
+        ``_decode_multi``): ``n_frames`` x ``n_steps`` decode steps; in audio
+        mode each frame phase ends with the batched SNAC hop, run for every
+        lane with head/steady commit masks and PCM zeroed where no lane
+        emits.  Returns ``(toks (n_frames * n_steps, B),)`` or, in audio
+        mode, also ``pcm (n_frames, B, frame_samples)`` int16 and
+        ``emit (n_frames, B)``."""
+        rows, pcms, emits = [], [], []
+        B = self.ecfg.max_slots
+        for _ in range(n_frames):
+            if audio:
+                self.frame_done.zero_()
+            for _ in range(n_steps):
+                toks = self._decode_core(attn, bucket, banded)
+                self._post_step(toks)
+                if audio:
+                    self._ring_push(toks, lenient)
+                rows.append(toks)
+            if not audio:
+                continue
+            fs = self._codec[1].frame_samples
+            head = self.frame_done & (self.fcnt == 1)
+            steady = self.frame_done & (self.fcnt >= WINDOW_FRAMES)
+            newest = self.ring[:, -_FRAME_TOKENS:]
+            window = torch.where(head[:, None], newest.repeat(1, WINDOW_FRAMES), self.ring)
+            pcm_win = self._snac_hop(window, steady)
+            ws = torch.where(head, 0, EMIT_SLOT)
+            pcm = pcm_win.reshape(B, WINDOW_FRAMES, fs)[self._rows, ws]
+            emit = head | steady
+            pcms.append(torch.where(emit[:, None], pcm, torch.zeros_like(pcm)))
+            emits.append(emit)
+        if not audio:
+            return (torch.stack(rows),)
+        return torch.stack(rows), torch.stack(pcms), torch.stack(emits)
 
     @torch.no_grad()
-    def _dispatch_frame(self, gate):
-        """Advance all ungated slots by ``steps_per_sync`` tokens; in audio
-        mode also run the frame's batched SNAC hop.  Returns host arrays
-        (toks (n, B), pcm (B, frame_samples) or None, emit (B,) or None)."""
-        n = self.steps_per_sync
-        stop_ids = tuple(sorted(self.ecfg.default_stop_ids))
-        audio = self._codec is not None and any(r.audio for r in self._by_slot.values())
-        bucket = self._context_bucket(n)
-        attn = self._attn_for(bucket)
+    def _run_program(self, bucket, k: int, audio: bool) -> tuple:
+        """Run (on the card: replay) the frame program of one key."""
+        banded = audio and self.ecfg.banded_sampling
         lenient = self.ecfg.lenient_audio_codes
-        if audio:
-            self.frame_done = torch.zeros_like(self.frame_done)
-        rows = []
-        for _ in range(n):
-            toks = self._decode_core(gate, attn, bucket, audio and self.ecfg.banded_sampling)
-            self._post_step(toks, stop_ids)
-            if audio:
-                self._ring_push(toks, lenient)
-            rows.append(toks)
-        toks_host = torch.stack(rows).cpu().numpy()
-        if not audio:
-            return toks_host, None, None
-        snac_params, snac_cfg = self._codec
-        head = self.frame_done & (self.fcnt == 1)
-        steady = self.frame_done & (self.fcnt >= WINDOW_FRAMES)
-        emit = head | steady
-        emit_host = emit.cpu().numpy()
-        if not emit_host.any():
-            return toks_host, None, emit_host
-        B, fs = self.ecfg.max_slots, snac_cfg.frame_samples
-        newest = self.ring[:, -_FRAME_TOKENS:]
-        window = torch.where(head[:, None], newest.repeat(1, WINDOW_FRAMES), self.ring)
-        pcm_win, self._snac_state = snac_stream_body(
-            snac_params, window, self._snac_state, steady, cfg=snac_cfg)
-        ws = torch.where(head, 0, EMIT_SLOT)
-        pcm = pcm_win.reshape(B, WINDOW_FRAMES, fs)[torch.arange(B, device=self.device), ws]
-        return toks_host, pcm.cpu().numpy(), emit_host
+        attn = self._attn_for(bucket)
+        key = (bucket, attn, self.steps_per_sync, k, audio, banded, lenient)
+        return self.programs.run(key, lambda: self._frame_program(
+            bucket=bucket, attn=attn, n_steps=self.steps_per_sync, n_frames=k,
+            audio=audio, banded=banded, lenient=lenient))
+
+    def _dispatch_frame(self, gate: np.ndarray):
+        """Issue one frame dispatch; returns (outputs, slot snapshot)."""
+        audio_reqs = [r for r in self._by_slot.values() if r.audio]
+        audio = self._codec is not None and bool(audio_reqs)
+        k = 1
+        if audio and not (self._prefill_jobs or self._pending_first
+                          # an admission is imminent only when a slot is free
+                          or (self._free and not self._pending.empty())
+                          or any(r.planner.emitted == 0 for r in audio_reqs)):
+            k = self.frames_per_dispatch
+        bucket = self._context_bucket(self.steps_per_sync * k)
+        if self.device.type == "cuda":
+            self._gate.copy_(torch.from_numpy(gate).pin_memory(), non_blocking=True)
+        else:
+            self._gate.copy_(torch.from_numpy(gate))
+        return self._run_program(bucket, k, audio), dict(self._by_slot)
+
+    # ---------------------------------------------------------- readback
+
+    def _readback(self, tensors: Dict[str, torch.Tensor],
+                  frame: bool = False) -> "asyncio.Future":
+        """Enqueue device -> host copies of ``tensors``; the future yields
+        {name: numpy array} once they landed, awaited off the event loop.
+        A frame's copies go to this turn's set of pinned buffers (two sets:
+        a set is reused only after the frame two dispatches back was
+        routed); a flush hop's to buffers of its own."""
+        loop = asyncio.get_running_loop()
+        if self.device.type != "cuda":
+            fut = loop.create_future()
+            fut.set_result({k: t.numpy().copy() for k, t in tensors.items()})
+            return fut
+        bufs = self._host_sets[self._host_turn] if frame else {}
+        hosts = {}
+        for name, t in tensors.items():
+            key = (name, tuple(t.shape), t.dtype)
+            if key not in bufs:
+                bufs[key] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            hosts[name] = bufs[key]
+            hosts[name].copy_(t, non_blocking=True)
+        if frame:
+            self._host_turn ^= 1
+        event = torch.cuda.Event()
+        event.record()
+
+        def wait():
+            event.synchronize()
+            return {k: h.numpy().copy() for k, h in hosts.items()}
+
+        return loop.run_in_executor(self._readback_pool, wait)
 
     # --------------------------------------------------------- routing
 
@@ -606,52 +789,71 @@ class OrpheusEngine:
                 finished_audio.append(req)
         return pushed
 
-    def _route_batch(self, items, slot_map) -> None:
-        """Route (slot, req, token) items outside a frame (first tokens)."""
-        pending_hops: List[tuple] = []
-        finished_audio: List[Request] = []
-        for slot, req, token in items:
-            if req.done or self._by_slot.get(slot) is not req:
-                continue
-            self._route_token(slot, req, token, pending_hops, finished_audio)
-        self._finish_audio(pending_hops, finished_audio)
-
-    def _process_frame(self, toks_host, pcm_host, emit_host, slot_map) -> None:
-        """Route one frame's tokens, then its PCM: a lane's hop reaches the
-        consumer only when the host planner produced it from the routed
-        tokens (a lane that stopped mid-dispatch emits nothing more)."""
-        pending_hops: List[tuple] = []
-        finished_audio: List[Request] = []
-        host_hops: set = set()
-        self.steps += toks_host.shape[0]
-        for step_row in toks_host:
-            for slot, req in slot_map.items():
-                if req.state is not RequestState.DECODING or self._by_slot.get(slot) is not req:
-                    continue
-                token = int(step_row[slot])
-                if token < 0:
-                    continue
-                if self._route_token(slot, req, token, pending_hops, finished_audio):
-                    host_hops.add(slot)
-        if pcm_host is not None:
-            for slot, req in slot_map.items():
-                if (req.audio and emit_host[slot] and slot in host_hops
-                        and req.state is not RequestState.CANCELLED):
-                    req.pcm_queue.put_nowait(pcm_host[slot].tobytes())
-        self._finish_audio(pending_hops, finished_audio)
-
-    def _finish_audio(self, pending_hops, finished_audio) -> None:
-        if pending_hops:
+    def _finish_routing(self, pending_hops, finished_audio) -> None:
+        if pending_hops:  # end-of-stream flush hops only
             self._run_audio_hops(pending_hops)
         for req in finished_audio:
-            req.pcm_queue.put_nowait(None)
+            self._pending_audio.append(("eos", req))
+
+    def _route_firsts(self, firsts, values, pending_hops, finished_audio) -> None:
+        for (slot, req, _), val in zip(firsts, values):
+            if req.done or self._by_slot.get(slot) is not req:
+                continue  # cancelled while the prefill was in flight
+            self._route_token(slot, req, int(val), pending_hops, finished_audio)
+
+    def _flush_first_tokens(self) -> None:
+        """Read back first tokens not yet routed, for the idle and parked
+        branches where no frame is in flight to carry them."""
+        if not self._pending_first:
+            return
+        pending, self._pending_first = self._pending_first, []
+        values = torch.cat([f[2] for f in pending]).cpu().numpy()
+        pending_hops: List[tuple] = []
+        finished_audio: List[Request] = []
+        self._route_firsts(pending, values, pending_hops, finished_audio)
+        self._finish_routing(pending_hops, finished_audio)
+
+    def _process_frame(self, slot_map, firsts, host) -> None:
+        """Route one frame's readback: first tokens sampled before the frame
+        (their codes entered the ring first), then the tokens phase by
+        phase; a lane's hop reaches the consumer only when the host planner
+        produced it from the routed tokens (a lane that stopped
+        mid-dispatch emits nothing more)."""
+        pending_hops: List[tuple] = []
+        finished_audio: List[Request] = []
+        if firsts:
+            self._route_firsts(firsts, host["firsts"], pending_hops, finished_audio)
+        toks = host["toks"]
+        self.steps += toks.shape[0]
+        pcm, emit = host.get("pcm"), host.get("emit")
+        n_phases = 1 if pcm is None else pcm.shape[0]
+        rows_per = toks.shape[0] // n_phases
+        for ph in range(n_phases):
+            host_hops: set = set()
+            for step_row in toks[ph * rows_per:(ph + 1) * rows_per]:
+                for slot, req in slot_map.items():
+                    if (req.state is not RequestState.DECODING
+                            or self._by_slot.get(slot) is not req):
+                        continue
+                    token = int(step_row[slot])
+                    if token < 0:
+                        continue
+                    if self._route_token(slot, req, token, pending_hops, finished_audio):
+                        host_hops.add(slot)
+            if pcm is None:
+                continue
+            for slot, req in slot_map.items():
+                if (req.audio and emit[ph, slot] and slot in host_hops
+                        and req.state is not RequestState.CANCELLED):
+                    req.pcm_queue.put_nowait(pcm[ph, slot].tobytes())
+        self._finish_routing(pending_hops, finished_audio)
 
     @torch.no_grad()
     def _run_audio_hops(self, pending: List[tuple]) -> None:
         """End-of-stream flush hops: all lanes' hops of one round in one
-        batched call with per-lane commit masks."""
-        snac_params, snac_cfg = self._codec
-        B, fs = self.ecfg.max_slots, snac_cfg.frame_samples
+        batched call with per-lane commit masks; each round's PCM readback
+        is issued at once and routed by ``_flush_audio``."""
+        B = self.ecfg.max_slots
         W = pending[0][2].window.shape[0]
         by_slot: Dict[int, List[tuple]] = {}
         for slot, req, h in pending:
@@ -667,15 +869,41 @@ class OrpheusEngine:
                 windows[slot] = h.window
                 commit[slot] = h.commit
                 emits.extend((slot, req, ws) for _f, ws in h.emits)
-            pcm, self._snac_state = snac_stream_body(
-                snac_params, torch.as_tensor(windows, device=self.device), self._snac_state,
-                torch.as_tensor(commit, device=self.device), cfg=snac_cfg)
-            pcm_np = pcm.cpu().numpy()
+            pcm = self._snac_hop(self._to_dev(windows, torch.int32),
+                                 self._to_dev(commit, torch.bool))
+            self._pending_audio.append(("pcm", self._readback({"pcm": pcm}), emits))
+
+    async def _flush_audio(self, force: bool = True) -> None:
+        """Route dispatched flush-hop PCM, strictly in dispatch order; with
+        ``force`` False, entries whose readback is still in flight are left
+        for a later call so the dispatch cadence never stalls."""
+        fs = self._codec[1].frame_samples if self._codec else 0
+        while self._pending_audio:
+            entry = self._pending_audio[0]
+            if entry[0] == "eos":
+                self._pending_audio.pop(0)
+                entry[1].pcm_queue.put_nowait(None)
+                continue
+            _, fut, emits = entry
+            if not force and not fut.done():
+                return
+            pcm = (await fut)["pcm"]
+            self._pending_audio.pop(0)
             for slot, req, ws in emits:
                 if req.state is not RequestState.CANCELLED:
-                    req.pcm_queue.put_nowait(pcm_np[slot, ws * fs:(ws + 1) * fs].tobytes())
+                    req.pcm_queue.put_nowait(pcm[slot, ws * fs:(ws + 1) * fs].tobytes())
 
     # ------------------------------------------------------------- loop
+
+    async def _settle(self, inflight) -> None:
+        """Await a frame's (already issued) readback and route it."""
+        slot_map, firsts, fut = inflight
+        self._process_frame(slot_map, firsts, await fut)
+
+    async def _drain(self, inflight):
+        if inflight is not None:
+            await self._settle(inflight)
+        return None
 
     async def _park(self) -> None:
         self._wake.clear()
@@ -685,6 +913,9 @@ class OrpheusEngine:
             pass
 
     async def _run(self) -> None:
+        # One frame in flight: dispatch frame N, enqueue its readback, run
+        # at most one prefill round, then route frame N-1 while N runs.
+        inflight = None  # (slot snapshot, firsts, readback future)
         while not self._closed:
             # admission takes the whole backlog, up to the free slots
             if self._free and not self._pending.empty():
@@ -700,26 +931,48 @@ class OrpheusEngine:
                 for req in deferred:
                     self._pending.put_nowait(req)
             if not self._by_slot:
-                if self._pending.empty():
-                    await self._park()
+                inflight = await self._drain(inflight)
+                if self._by_slot or not self._pending.empty():
+                    continue  # settling surfaced new work
+                self._flush_first_tokens()
+                await self._flush_audio()
+                await self._park()
                 continue
             gate = self._backpressure_gate()
             if gate is None:
+                inflight = await self._drain(inflight)
                 if self._prefill_jobs:
-                    # nothing decodable yet: keep admissions moving
+                    # nothing decodable yet: keep admissions moving; the
+                    # first tokens ride the next frame's readback
                     self._advance_prefill()
+                    await self._flush_audio()
                     await asyncio.sleep(0)
                     continue
                 # every live consumer is saturated: park until one drains
+                self._flush_first_tokens()
+                await self._flush_audio()
                 self._wake.clear()
                 if (self._backpressure_gate() is not None
                         or not self._pending.empty() or self._closed):
                     continue
                 await self._park()
                 continue
-            slot_map = dict(self._by_slot)
-            toks, pcm, emit = self._dispatch_frame(gate)
-            self._process_frame(toks, pcm, emit, slot_map)
-            # at most one prefill chunk rides behind each frame
+            outs, slot_map = self._dispatch_frame(gate)
+            # firsts sampled before this frame ride its readback
+            firsts, self._pending_first = self._pending_first, []
+            names = ("toks", "pcm", "emit")[:len(outs)]
+            payload = dict(zip(names, outs))
+            if firsts:
+                payload["firsts"] = torch.cat([f[2] for f in firsts])
+            fut = self._readback(payload, frame=True)
+            # at most one prefill round rides behind each frame
             self._advance_prefill()
+            # route the previous frame while this one runs
+            if inflight is not None:
+                await self._settle(inflight)
+            inflight = (slot_map, firsts, fut)
+            await self._flush_audio(force=False)
             await asyncio.sleep(0)
+        await self._drain(inflight)
+        self._flush_first_tokens()
+        await self._flush_audio()

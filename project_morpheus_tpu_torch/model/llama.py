@@ -12,7 +12,8 @@ byte-identical so the tests hold both packages to the same numbers:
   ``(L, B, KV, S, HD)``.
 
 Where JAX threads an immutable cache through a layer loop, the port
-updates the cache tensors IN PLACE; the decode-attention kernels read the
+updates the cache tensors IN PLACE (so a captured CUDA graph of the decode
+step writes the engine's cache where it lies); the decode-attention kernels read the
 cache where it lies (see ``ops/decode_attention.py``).  Dots that JAX runs
 with ``preferred_element_type=float32`` run here on operands rounded to
 the model dtype and then widened to fp32, so both packages round at the
@@ -21,7 +22,7 @@ same points and differ only in summation order.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -229,49 +230,80 @@ def llama_prefill_chunk(
     """One prompt chunk against the KV history already in the cache.
 
     Writes the chunk's K/V at ``offset`` of lane ``slot`` and returns the
-    fp32 logits ``(padded_vocab,)`` of the chunk's last real position."""
-    S = tokens.shape[0]
+    fp32 logits ``(padded_vocab,)`` of the chunk's last real position: the
+    batched round of :func:`llama_prefill_chunk_batch` with one job."""
+    return llama_prefill_chunk_batch(
+        params, tokens[None], cfg, cache, [offset], [slot], [length],
+        hist_bucket=hist_bucket, w8a8=w8a8)[0]
+
+
+@torch.no_grad()
+def llama_prefill_chunk_batch(
+    params: Params,
+    tokens: torch.Tensor,       # (J, C) int — one (padded) chunk from each of J slots
+    cfg: LlamaConfig,
+    cache: KVCache,             # updated in place
+    offsets: Sequence[int],     # (J,) chunk start positions
+    slots: Sequence[int],       # (J,) target cache lanes
+    lengths: Sequence[int],     # (J,) real tokens in each chunk
+    *,
+    hist_bucket: int,           # attention reads cache[:hist_bucket]
+    w8a8: bool = False,
+) -> torch.Tensor:
+    """One prompt chunk from EACH of J slots in one pass: the projections
+    and MLP run on ``(J * C, D)`` rows, and each chunk attends only to its
+    own slot's history, so the result equals J sequential single-chunk
+    calls.  Offsets, slots and lengths are host integers (the engine's
+    chunk plan).  Returns the fp32 logits ``(J, padded_vocab)`` of each
+    chunk's last real position."""
+    J, C = tokens.shape
     KV, HD = cfg.num_kv_heads, cfg.head_dim
     G = cfg.num_heads // KV
     quant = kv_cache_is_quantized(cache)
     dev = tokens.device
     inv_freqs = rope_inv_freqs(cfg, dev)
-    positions = (offset + torch.arange(S, dtype=torch.int32, device=dev))[None, :]
-    x = embed_lookup(params["embed"], tokens[None, :], params["ln_f"].dtype)
+    steps = torch.arange(C, dtype=torch.int32, device=dev)
+    positions = torch.stack([off + steps for off in offsets])  # (J, C)
+    n_live = max(offsets) + C
+    x = embed_lookup(params["embed"], tokens, params["ln_f"].dtype)  # (J, C, D)
     mm = matmul_w8a8 if w8a8 else matmul_maybe_quant
     lp = params["layers"]
-    w = slice(offset, offset + S)
     for i in range(cfg.num_layers):
         wl = _layer(lp, i)
         h = rmsnorm(x, wl["ln1"], cfg.rms_eps)
-        q, k, v = _project_qkv(h, wl, cfg, mm)  # (1, S, H/KV, HD)
+        q, k, v = _project_qkv(h, wl, cfg, mm)  # (J, C, H/KV, HD)
         q = apply_rope(q, positions, inv_freqs)
         k = apply_rope(k, positions, inv_freqs)
         if quant:
-            kq, ksc = quantize_kv(k[0])  # (S, KV, HD), (S, KV)
-            vq, vsc = quantize_kv(v[0])
-            cache["k"][i, slot, w] = kq.reshape(S, KV * HD)
-            cache["v"][i, slot, w] = vq.reshape(S, KV * HD)
-            cache["scale"][i, slot, w] = torch.cat([ksc, vsc], dim=-1)
-            k_s = cache["k"][i, slot, :hist_bucket].reshape(hist_bucket, KV, HD).transpose(0, 1)
-            v_s = cache["v"][i, slot, :hist_bucket].reshape(hist_bucket, KV, HD).transpose(0, 1)
-            sc_s = cache["scale"][i, slot, :hist_bucket]
-            ks_s, vs_s = sc_s[:, :KV].T, sc_s[:, KV:].T
-        else:
-            cache["k"][i, slot, :, w] = k[0].transpose(0, 1).to(cache["k"].dtype)
-            cache["v"][i, slot, :, w] = v[0].transpose(0, 1).to(cache["v"].dtype)
-            k_s = cache["k"][i, slot, :, :hist_bucket]
-            v_s = cache["v"][i, slot, :, :hist_bucket]
-            ks_s = vs_s = None
-        attn = _chunk_streaming_attn(
-            q[0].reshape(S, KV, G, HD), k_s, v_s, ks_s, vs_s, positions[0],
-            hist_bucket, n_live=offset + S,
-        ).reshape(1, S, cfg.num_heads * HD).to(x.dtype)
+            kq, ksc = quantize_kv(k)  # (J, C, KV, HD), (J, C, KV)
+            vq, vsc = quantize_kv(v)
+            sc = torch.cat([ksc, vsc], dim=-1)
+        attn = []
+        for j, (off, slot) in enumerate(zip(offsets, slots)):
+            w = slice(off, off + C)
+            if quant:
+                cache["k"][i, slot, w] = kq[j].reshape(C, KV * HD)
+                cache["v"][i, slot, w] = vq[j].reshape(C, KV * HD)
+                cache["scale"][i, slot, w] = sc[j]
+                k_s = cache["k"][i, slot, :hist_bucket].reshape(hist_bucket, KV, HD).transpose(0, 1)
+                v_s = cache["v"][i, slot, :hist_bucket].reshape(hist_bucket, KV, HD).transpose(0, 1)
+                sc_s = cache["scale"][i, slot, :hist_bucket]
+                ks_s, vs_s = sc_s[:, :KV].T, sc_s[:, KV:].T
+            else:
+                cache["k"][i, slot, :, w] = k[j].transpose(0, 1).to(cache["k"].dtype)
+                cache["v"][i, slot, :, w] = v[j].transpose(0, 1).to(cache["v"].dtype)
+                k_s = cache["k"][i, slot, :, :hist_bucket]
+                v_s = cache["v"][i, slot, :, :hist_bucket]
+                ks_s = vs_s = None
+            attn.append(_chunk_streaming_attn(
+                q[j].reshape(C, KV, G, HD), k_s, v_s, ks_s, vs_s, positions[j],
+                hist_bucket, n_live=n_live))
+        attn = torch.stack(attn).reshape(J, C, cfg.num_heads * HD).to(x.dtype)
         x = x + mm(attn, wl["wo"])
         h = rmsnorm(x, wl["ln2"], cfg.rms_eps)
         x = x + _mlp(h, wl, cfg, mm)
-    x_last = rmsnorm(x[0, length - 1], params["ln_f"], cfg.rms_eps)
-    return _logits(params, x_last[None])[0]
+    x_last = torch.stack([x[j, n - 1] for j, n in enumerate(lengths)])  # (J, D)
+    return _logits(params, rmsnorm(x_last, params["ln_f"], cfg.rms_eps))
 
 
 # ------------------------------------------------------------------- decode

@@ -2,16 +2,22 @@
 
 A quantized weight is the dict leaf ``{"q": int8 (in, out), "scale": f32
 (out,)}``; ``matmul_maybe_quant`` dispatches on the leaf so the same forward
-code serves both representations.  The products are plain library matmuls,
-as the JAX package leaves them to XLA: weight-only dequant into the
-activation dtype, and ``torch._int_mm`` for the int8 x int8 (w8a8) chunk
-prefill on the card.
+code serves both representations.  Where XLA fuses the weight-only dequant
+into the dot for the JAX package, activations of at most
+``int8_gemv.MAX_ROWS`` rows on the card (the whole decode step and the
+prefill's last-position logits) go to the hand-written int8 GEMV
+(``ops/int8_gemv.py``); everything else is a plain library matmul:
+dequant into the activation dtype (:func:`dequant_matmul`, the GEMV's
+plain twin), and ``torch._int_mm`` for the int8 x int8 (w8a8) chunk prefill
+on the card.
 """
 from __future__ import annotations
 
 from typing import Dict, Union
 
 import torch
+
+from ..ops.int8_gemv import MAX_ROWS, int8_gemv
 
 QLeaf = Dict[str, torch.Tensor]
 Weight = Union[torch.Tensor, QLeaf]
@@ -43,12 +49,32 @@ def quantize_weight(w: torch.Tensor) -> QLeaf:
     return _quant_2d(w)
 
 
+def _gemv_rows(h: torch.Tensor) -> bool:
+    """Whether ``h`` goes to the int8 GEMV kernel: on the card, at most
+    ``MAX_ROWS`` rows (the kernel raises on an activation that is not
+    bf16)."""
+    return h.is_cuda and h.numel() <= MAX_ROWS * h.shape[-1]
+
+
+def dequant_matmul(h: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``(h @ q) * scale`` by a cast of the int8 weight to ``h.dtype``."""
+    y = h @ q.to(h.dtype)
+    return y * scale.to(y.dtype)
+
+
+def dequant_matmul_t(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``(x @ q.T) * scale`` in fp32 by a cast of the int8 table."""
+    y = x @ q.T.to(x.dtype)
+    return y.float() * scale
+
+
 def matmul_maybe_quant(h: torch.Tensor, w: Weight) -> torch.Tensor:
     """``h @ w`` for plain and int8 leaves (weight-only dequant)."""
     if not is_quantized(w):
         return h @ w
-    y = h @ w["q"].to(h.dtype)
-    return y * w["scale"].to(y.dtype)
+    if _gemv_rows(h):
+        return int8_gemv(h, w["q"], w["scale"])
+    return dequant_matmul(h, w["q"], w["scale"])
 
 
 def _int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -141,5 +167,6 @@ def tied_lm_head_logits(x: torch.Tensor, embed: Weight) -> torch.Tensor:
     """``x @ embed.T`` in fp32 for plain or quantized embedding tables."""
     if not is_quantized(embed):
         return (x @ embed.T).float()
-    y = x @ embed["q"].T.to(x.dtype)
-    return y.float() * embed["scale"]
+    if _gemv_rows(x):
+        return int8_gemv(x, embed["q"], embed["scale"], k_major=True)
+    return dequant_matmul_t(x, embed["q"], embed["scale"])

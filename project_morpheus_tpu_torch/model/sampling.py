@@ -4,12 +4,17 @@ Per-slot temperature / top-p / repetition penalty as tensors, so one step
 serves a batch of requests with different settings.  The nucleus is found
 by the same 24-step bisection on the kept probability mass as the JAX
 package (not a sort), so both select the same token sets.  Categorical
-draws are Gumbel-max with noise from each slot's own ``torch.Generator``.
+draws are Gumbel-max with noise from a counter-based generator: the
+uniform bits of slot ``b`` are a pure integer function of
+``(seeds[b], draws[b], vocab index)`` held in device tensors, so a draw
+needs no host state and runs unchanged inside a captured CUDA graph.  The
+caller advances ``draws[b]`` on the steps where lane ``b`` emits, as the
+JAX engine advances each slot's key chain.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -23,7 +28,7 @@ class SamplingParams:
     repetition_penalty: float = 1.1
     max_tokens: int = 8192
     stop_token_ids: Sequence[int] = (128258,)
-    # per-request seed: the slot's generator is seeded with it, so a seeded
+    # per-request seed: it fixes the slot's random stream, so a seeded
     # request's trace does not depend on co-batched traffic
     seed: Optional[int] = None
 
@@ -62,23 +67,52 @@ def nucleus_logits(scaled: torch.Tensor, top_p: torch.Tensor) -> torch.Tensor:
     return torch.where(probs >= lo[:, None], scaled, torch.full_like(scaled, -torch.inf))
 
 
-def gumbel_noise(shape_v: int, generators: List[Optional[torch.Generator]],
-                 device) -> torch.Tensor:
-    """(B, V) Gumbel noise; row b draws from ``generators[b]``, or is zero
-    when that entry is None (the lane draws nothing this step)."""
-    rows = []
-    for g in generators:
-        if g is None:
-            rows.append(torch.zeros(shape_v, device=device))
-        else:
-            u = torch.rand(shape_v, generator=g, device=device)
-            rows.append(-torch.log(-torch.log(torch.clamp(u, min=1e-20))))
-    return torch.stack(rows)
+# ------------------------------------------------------ counter-based bits
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2**32`` for int64 ``x`` in [0, 2**32): the constant is
+    split in 16-bit halves so that no int64 product overflows."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit avalanche mix (xorshift-multiply, two rounds)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def uniform_bits(seeds: torch.Tensor, draws: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, n) int64 in [0, 2**32): bits of draw ``draws[b]`` of the stream
+    ``seeds[b]`` (both int64 >= 0), one word per vocab index.
+
+    Only integer adds, multiplies, shifts and xors on int64 tensors whose
+    values stay below 2**49, so the CPU and the card compute the same bits."""
+    s = seeds.long()
+    key = _mix32((s & _M32) ^ _mix32(((s >> 32) & _M32) ^ 0x9E3779B9))
+    key = _mix32(key ^ _mul32(draws.long() & _M32, 0x85EBCA6B))
+    idx = torch.arange(n, device=seeds.device, dtype=torch.int64)
+    return _mix32(_mix32(key[:, None] ^ _mul32(idx, 0xC2B2AE35)[None, :]) ^ 0x27D4EB2F)
+
+
+def gumbel_noise(seeds: torch.Tensor, draws: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, n) Gumbel noise from :func:`uniform_bits`: 24 bits make a uniform
+    in (0, 1) exactly; the logs round as float32 does on each device."""
+    u = ((uniform_bits(seeds, draws, n) >> 8).float() + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
 
 
 def sample_logits(
     logits: torch.Tensor,         # (B, padded_vocab) fp32
-    generators: List[Optional[torch.Generator]],  # per-slot; None: no draw
+    seeds: torch.Tensor,          # (B,) int64 per-slot stream
+    draws: torch.Tensor,          # (B,) int64 per-slot draw counter
     *,
     temperature: torch.Tensor,    # (B,)
     top_p: torch.Tensor,          # (B,)
@@ -92,6 +126,6 @@ def sample_logits(
     greedy = logits.argmax(dim=-1)
     scaled = logits / torch.clamp(temperature, min=1e-4)[:, None]
     nucleus = nucleus_logits(scaled, top_p)
-    noise = gumbel_noise(logits.shape[1], generators, logits.device)
+    noise = gumbel_noise(seeds, draws, logits.shape[1])
     sampled = (nucleus + noise).argmax(dim=-1)
     return torch.where(temperature <= 0.0, greedy, sampled).to(torch.int32)

@@ -1,0 +1,93 @@
+"""Checks that need the card: each CUDA kernel against its plain twin, and
+the engine's frame programs replayed from CUDA graphs against the same
+programs run eagerly.  This file imports no JAX, so it runs where the port
+runs (``python -m pytest tests/test_torch_cuda.py`` on a machine with a
+card); everywhere else each test skips.
+
+Tolerances: a bf16 kernel output against an fp32 twin,
+|err| <= 1e-2 |ref| + 2e-3 (bf16 rounding of the output plus summation
+order); the int8 GEMV against its bf16 twin, 2**-6 |ref| + 1e-3 (the twin
+rounds three times to bf16: the product, the scale and the scaled output;
+the kernel once: up to about two bf16 ulps apart)."""
+import pytest
+import torch
+
+from project_morpheus_tpu_torch.ops import decode_attention as da
+from project_morpheus_tpu_torch.ops import int8_gemv as ig
+from project_morpheus_tpu_torch.tools import graph_check as gc
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("HD,G", [(128, 3), (64, 4)])
+def test_cuda_kernels_match_twins(cuda, HD, G):
+    """Both decode-attention kernels (the layered one with bf16 and int8
+    caches) at the Orpheus-3B (128, 3) and 1B (64, 4) head shapes, with one
+    slot past the capacity and one of length 0 (zeros)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    L, B, S, KV = 2, 6, 1024, 8
+    H = KV * G
+    lens = torch.tensor([0, 1, 65, 700, 1024, 1024 + 100], dtype=torch.int32, device=cuda)
+    q = torch.randn(B, H, HD, generator=g, device=cuda).to(torch.bfloat16)
+    k8 = torch.randint(-127, 128, (L, B, S, KV * HD), generator=g, device=cuda, dtype=torch.int8)
+    v8 = torch.randint(-127, 128, (L, B, S, KV * HD), generator=g, device=cuda, dtype=torch.int8)
+    sc = torch.rand(L, B, S, 2 * KV, generator=g, device=cuda) * 0.02
+    kb = torch.randn(L, B, KV, S, HD, generator=g, device=cuda).to(torch.bfloat16)
+    vb = torch.randn(L, B, KV, S, HD, generator=g, device=cuda).to(torch.bfloat16)
+    k8h = k8.view(L, B, S, KV, HD).transpose(2, 3).contiguous()
+    v8h = v8.view(L, B, S, KV, HD).transpose(2, 3).contiguous()
+    ksh = sc[..., :KV].transpose(2, 3).contiguous()
+    vsh = sc[..., KV:].transpose(2, 3).contiguous()
+    cases = [
+        (da.decode_attention_int8_slots(q, k8, v8, sc, lens, 1),
+         da.decode_attention_int8_slots_plain(q.float(), k8, v8, sc, lens, 1)),
+        (da.decode_attention_layered(q, kb, vb, lens, 1),
+         da.decode_attention_layered_plain(q.float(), kb, vb, lens, 1)),
+        (da.decode_attention_layered(q, k8h, v8h, lens, 1, k_scale=ksh, v_scale=vsh),
+         da.decode_attention_layered_plain(q.float(), k8h, v8h, lens, 1, ksh, vsh)),
+    ]
+    torch.cuda.synchronize()
+    for got, want in cases:
+        err = (got.float() - want).abs()
+        assert torch.all(err <= 1e-2 * want.abs() + 2e-3)
+        assert torch.all(got[0] == 0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("M", [1, 8, 13])
+@pytest.mark.parametrize("k_major,K,N", [(False, 256, 1280), (False, 8192, 3072),
+                                         (True, 3072, 1000), (True, 256, 4096)])
+def test_int8_gemv_matches_twin(cuda, M, k_major, K, N):
+    """The GEMV in both layouts, with a K split ((K, N) at 8192 x 3072) and
+    a ragged last row tile ((N, K) at N = 1000), against its twin."""
+    g = torch.Generator(device=cuda).manual_seed(M + K)
+    h = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
+    shape = (N, K) if k_major else (K, N)
+    q = torch.randint(-127, 128, shape, generator=g, device=cuda, dtype=torch.int8)
+    scale = torch.rand(N, generator=g, device=cuda) * 0.02 + 1e-3
+    ig.reset_launch_counts()
+    got = ig.int8_gemv(h, q, scale, k_major=k_major)
+    want = ig.int8_gemv_plain(h, q, scale, k_major)
+    torch.cuda.synchronize()
+    assert ig.LAUNCHES["int8_gemv"] == 1
+    assert got.dtype == (torch.float32 if k_major else torch.bfloat16) and got.shape == (M, N)
+    err = (got.float() - want.float()).abs()
+    assert torch.all(err <= 2**-6 * want.float().abs() + 1e-3), err.max()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("temperature", [0.0, 0.9])
+def test_graph_replay_matches_eager(cuda, temperature):
+    """The same seeded requests give the same tokens whether the frame
+    programs are replayed from CUDA graphs or run eagerly."""
+    (graph_toks, graph_programs), (eager_toks, eager_programs) = gc.graph_and_eager_traces(
+        cuda, temperature)
+    assert graph_programs.replays > 0 and eager_programs.captures == 0
+    assert all(len(t) == gc.MAX_TOKENS for t in graph_toks)
+    assert graph_toks == eager_toks

@@ -7,8 +7,8 @@ fp32 on both sides: outputs agree to 2e-4 (abs and rel), the tolerance of
 the JAX package's own kernel tests.  A slot of length 0 yields zeros, as
 the Pallas kernels give (the dense oracle gives the mean of V there).
 
-The ``requires_cuda`` tests hold each CUDA kernel against its twin on the
-card and skip where there is none."""
+The CUDA kernels are held against these twins on the card by
+``tests/test_torch_cuda.py``, which imports no JAX."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -163,49 +163,3 @@ def test_wrappers_count_only_kernel_launches():
     da.decode_attention_int8_slots(_t(q), _t(k8), _t(v8), _t(sc),
                                    _t(np.asarray([1, 2, 3], np.int32)), 0)
     assert da.LAUNCHES == {"decode_attention_layered": 0, "decode_attention_int8_slots": 0}
-
-
-# ----------------------------------------------------------- on the card
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.requires_cuda
-@pytest.mark.parametrize("HD,G", [(128, 3), (64, 4)])
-def test_cuda_kernels_match_twins(cuda, HD, G):
-    """Both CUDA kernels (the layered one with bf16 and int8 caches) against
-    their twins at the Orpheus-3B (128, 3) and 1B (64, 4) head shapes, with
-    one slot past the capacity; bf16 output vs fp32 twin:
-    |err| <= 1e-2 * |ref| + 2e-3."""
-    g = torch.Generator(device=cuda).manual_seed(0)
-    L, B, S, KV = 2, 6, 1024, 8
-    H = KV * G
-    lens = torch.tensor([0, 1, 65, 700, 1024, 1024 + 100], dtype=torch.int32, device=cuda)
-    q = torch.randn(B, H, HD, generator=g, device=cuda).to(torch.bfloat16)
-    k8 = torch.randint(-127, 128, (L, B, S, KV * HD), generator=g, device=cuda, dtype=torch.int8)
-    v8 = torch.randint(-127, 128, (L, B, S, KV * HD), generator=g, device=cuda, dtype=torch.int8)
-    sc = torch.rand(L, B, S, 2 * KV, generator=g, device=cuda) * 0.02
-    kb = torch.randn(L, B, KV, S, HD, generator=g, device=cuda).to(torch.bfloat16)
-    vb = torch.randn(L, B, KV, S, HD, generator=g, device=cuda).to(torch.bfloat16)
-    k8h = k8.view(L, B, S, KV, HD).transpose(2, 3).contiguous()
-    v8h = v8.view(L, B, S, KV, HD).transpose(2, 3).contiguous()
-    ksh = sc[..., :KV].transpose(2, 3).contiguous()
-    vsh = sc[..., KV:].transpose(2, 3).contiguous()
-    cases = [
-        (da.decode_attention_int8_slots(q, k8, v8, sc, lens, 1),
-         da.decode_attention_int8_slots_plain(q.float(), k8, v8, sc, lens, 1)),
-        (da.decode_attention_layered(q, kb, vb, lens, 1),
-         da.decode_attention_layered_plain(q.float(), kb, vb, lens, 1)),
-        (da.decode_attention_layered(q, k8h, v8h, lens, 1, k_scale=ksh, v_scale=vsh),
-         da.decode_attention_layered_plain(q.float(), k8h, v8h, lens, 1, ksh, vsh)),
-    ]
-    torch.cuda.synchronize()
-    for got, want in cases:
-        err = (got.float() - want).abs()
-        assert torch.all(err <= 1e-2 * want.abs() + 2e-3)
-        assert torch.all(got[0] == 0)

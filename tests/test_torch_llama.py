@@ -150,3 +150,57 @@ def test_decode_steps_match_jax(cfg, kind, attn, quant):
         np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **tol)
         lengths = lengths + active
     _assert_cache_close(jc, tc)
+
+
+_jax_prefill_batch = jax.jit(jl.llama_prefill_chunk_batch,
+                             static_argnames=("cfg", "hist_bucket", "w8a8"))
+
+
+@pytest.mark.parametrize("quant,w8a8", [(False, False), (True, False), (False, True),
+                                        (True, True)])
+def test_prefill_chunk_batch_matches_jax_and_sequential(cfg, quant, w8a8):
+    """Two lockstep rounds of J = 3 chunks (slots 2, 0, 3 of a 4-slot cache,
+    the second round padded): logits and cache against JAX's
+    ``llama_prefill_chunk_batch`` (1e-3, as the single-chunk test; 1e-2 with
+    both int8 activations and an int8 cache, where a value on a rounding
+    half-step of either quantiser lands one step apart and moves a row's
+    logits by up to ~7e-3, as the single-chunk entries of both packages do
+    on these inputs), and against J sequential port calls (1e-5: the
+    batched projections only change the summation order of the CPU
+    matmuls)."""
+    jp, tp = _weights("int8_fused" if w8a8 else "plain")
+    rng = np.random.default_rng(7)
+    slots, J, C = [2, 0, 3], 3, 16
+    toks = rng.integers(3, 900, (J, 2 * C)).astype(np.int32)
+    jc, tc = _caches(cfg, 4, 64, quant)
+    _, tc_seq = _caches(cfg, 4, 64, quant)
+    for off, lens in ((0, [C] * J), (C, [16, 9, 12])):
+        chunk = np.zeros((J, C), np.int32)
+        for j, n in enumerate(lens):
+            chunk[j, :n] = toks[j, off:off + n]
+        jlog, jc = _jax_prefill_batch(
+            jp, jnp.asarray(chunk), cfg, jc, jnp.asarray([off] * J), jnp.asarray(slots),
+            jnp.asarray(lens), hist_bucket=64, w8a8=w8a8)
+        tlog = tl.llama_prefill_chunk_batch(tp, torch.tensor(chunk), cfg, tc, [off] * J, slots,
+                                            lens, hist_bucket=64, w8a8=w8a8)
+        tol = 1e-2 if quant and w8a8 else 1e-3
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), rtol=tol, atol=tol)
+        seq = torch.stack([tl.llama_prefill_chunk(tp, torch.tensor(chunk[j]), cfg, tc_seq, off,
+                                                  slots[j], lens[j], hist_bucket=64, w8a8=w8a8)
+                           for j in range(J)])
+        np.testing.assert_allclose(tlog.numpy(), seq.numpy(), rtol=1e-5, atol=1e-5)
+    if quant and w8a8:
+        # a flipped activation step reaches the later layers' K/V: a few
+        # int8 steps, and scales ~1% apart, in well under 1% of the entries
+        for name in jc:
+            a, b = np.asarray(jc[name]), tc[name].numpy()
+            if a.dtype == np.int8:
+                d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+                assert d.max() <= 4 and (d > 0).mean() < 1e-2, name
+            else:
+                r = np.abs(b - a) / np.maximum(np.abs(a), 1e-8)
+                assert r.max() < 2e-2 and (r > 1e-4).mean() < 1e-2, name
+    else:
+        _assert_cache_close(jc, tc)
+    for name in tc:
+        np.testing.assert_allclose(_np(tc[name]), _np(tc_seq[name]), rtol=1e-5, atol=1e-5)

@@ -1,6 +1,8 @@
 """The port's sampler against the JAX package's: greedy choices and the
 top-p nucleus (both found by the same 24-step bisection) must be equal,
-not merely close."""
+not merely close.  The random draws differ by design (a counter-based
+generator in the port, ``jax.random`` keys in JAX); their properties are
+checked on their own."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +30,8 @@ def test_greedy_matches_jax(seed):
     want = js.sample_logits(jnp.asarray(logits), jax.random.key(0), temperature=jnp.asarray(zero),
                             top_p=jnp.asarray(top_p), repetition_penalty=jnp.asarray(pen),
                             presence=jnp.asarray(presence), vocab_size=V)
-    got = ts.sample_logits(torch.tensor(logits), [None] * len(logits),
+    none = torch.zeros(len(logits), dtype=torch.int64)
+    got = ts.sample_logits(torch.tensor(logits), none, none,
                            temperature=torch.tensor(zero), top_p=torch.tensor(top_p),
                            repetition_penalty=torch.tensor(pen),
                            presence=torch.tensor(presence), vocab_size=V)
@@ -60,19 +63,26 @@ def test_nucleus_sets_match_jax(seed, monkeypatch):
 
 
 def test_draws_follow_each_slots_generator():
-    """A lane's draw depends only on its own generator: the same seed gives
-    the same token whatever the other lanes do, and draws stay in the nucleus."""
+    """A lane's draw depends only on its own (seed, draw counter): the same
+    pair gives the same token whatever the other lanes hold, another
+    counter gives other noise, and draws stay in the nucleus."""
     logits, presence, _, top_p, pen, V = _inputs(4)
     temp = torch.full((4,), 1.0)
 
-    def draw(seeds):
-        gens = [None if s is None else torch.Generator().manual_seed(s) for s in seeds]
-        return ts.sample_logits(torch.tensor(logits), gens, temperature=temp,
-                                top_p=torch.tensor(top_p), repetition_penalty=torch.tensor(pen),
+    def draw(seeds, draws):
+        return ts.sample_logits(torch.tensor(logits), torch.tensor(seeds), torch.tensor(draws),
+                                temperature=temp, top_p=torch.tensor(top_p),
+                                repetition_penalty=torch.tensor(pen),
                                 presence=torch.tensor(presence), vocab_size=V)
 
-    a, b = draw([1, 2, 3, 4]), draw([1, 9, None, 4])
+    a, b = draw([1, 2, 3, 2**40 + 4], [0, 0, 5, 7]), draw([1, 9, 0, 2**40 + 4], [0, 3, 0, 7])
     assert a[0] == b[0] and a[3] == b[3]
+    bits = ts.uniform_bits(torch.tensor([1, 1, 2]), torch.tensor([0, 1, 0]), 4096)
+    assert not torch.equal(bits[0], bits[1]) and not torch.equal(bits[0], bits[2])
+    assert int(bits.min()) >= 0 and int(bits.max()) < 2**32
+    # 24-bit uniforms: mean 1/2, and no two lanes of a draw coincide much
+    u = (bits >> 8).double() / 2**24
+    assert abs(float(u.mean()) - 0.5) < 0.01
     pl = ts.penalized_logits(torch.tensor(logits), repetition_penalty=torch.tensor(pen),
                              presence=torch.tensor(presence), vocab_size=V)
     nuc = ts.nucleus_logits(pl / temp[:, None], torch.tensor(top_p))
