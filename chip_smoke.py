@@ -16,8 +16,10 @@ Phases, each raising on failure (exit code 1, no result lines):
    time; then check them at the Orpheus-1B head shape (HD=64, G=4);
    then the int8 GEMV at the five 3B weight shapes (wqkv, wo, wgu, wd over
    28 stacked layers, and the tied lm_head), M = 1 and 8 rows: against its
-   twin, and timed the same way beside its bound, its twin (the cast +
-   matmul it replaces) and ``torch.matmul`` on a pre-cast bf16 weight;
+   twin, and timed from CUDA graphs with a small dependent add between
+   calls (less the add's own time: the kernel starts before the one ahead
+   of it ends) beside its bound, its twin (the cast + matmul it replaces)
+   and ``torch.matmul`` on a pre-cast bf16 weight;
 3. hold the port's decode path on the card (bf16, int8 weights, CUDA
    kernels, int8 and bf16 caches) against the same path on the CPU (fp32,
    plain twins) on a small model; then serve seeded requests on that model
@@ -42,7 +44,8 @@ Phases, each raising on failure (exit code 1, no result lines):
 Kernel launch counts are zeroed just before the first run of phase 4 (the
 main path) and just before phase 5 and read just after each; launches inside replayed
 CUDA graphs are counted through each graph's tally.  The last lines are the
-card's name and power limit, one JSON line describing every kernel, and
+GEMV's device ms a frame in the k=1 serving load, the card's name and power
+limit, one JSON line describing every kernel, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout of the repository, it exits non-zero before printing any result.
 """
@@ -266,28 +269,27 @@ def phase_1b_heads(torch, da, dev) -> float:
 def phase_gemv(torch, dev):
     """The int8 GEMV at the 3B weight shapes against its twin (M = 1, 8),
     timed per call; returns its kernel record (times per decode step:
-    28 calls of each layer weight and one lm_head, at M = 8)."""
-    from project_morpheus_tpu_torch.model import LlamaConfig
+    28 calls of each layer weight and one lm_head, at M = 8).
+
+    The kernel starts streaming weights before the previous kernel ends, so
+    back-to-back calls would overlap one GEMV with the next, which serving
+    never does (a norm, an add or a SiLU sits between).  Its time is taken
+    with a small dependent add between calls (``time_kernels.chained_ms``),
+    less the add's own time; the back-to-back time is printed beside it."""
     from project_morpheus_tpu_torch.ops import int8_gemv as ig
     from project_morpheus_tpu_torch.tools import time_kernels as tk
 
-    c = LlamaConfig.orpheus_3b()
-    D, L, HD = c.hidden_size, c.num_layers, c.head_dim
-    qkv = (c.num_heads + 2 * c.num_kv_heads) * HD
-    shapes = {"wqkv": (D, qkv, False, L), "wo": (c.num_heads * HD, D, False, L),
-              "wgu": (D, 2 * c.intermediate_size, False, L),
-              "wd": (c.intermediate_size, D, False, L),
-              "lm_head": (D, c.padded_vocab, True, 1)}
     g = torch.Generator(device=dev).manual_seed(5)
     recs, err = {}, 0.0
     step = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    for name, (K, N, k_major, layers) in shapes.items():
+    for name, (K, N, k_major, layers) in tk.gemv_shapes().items():
         wshape = (layers, N, K) if k_major else (layers, K, N)
         q = torch.randint(-127, 128, wshape, generator=g, device=dev, dtype=torch.int8)
         sc = torch.rand(layers, N, generator=g, device=dev) * 0.02 + 1e-3
         wb = q.to(torch.bfloat16)  # the yardstick's pre-cast weight
         for M in (1, 8):
-            h = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+            h0 = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+            h = h0.clone()
             for i in {0, layers - 1}:
                 got = ig.int8_gemv(h, q[i], sc[i], k_major=k_major)
                 want = ig.int8_gemv_plain(h, q[i], sc[i], k_major).float()
@@ -304,21 +306,26 @@ def phase_gemv(torch, dev):
                 lib = lambda i: h @ wb[i % layers].T  # noqa: E731
             else:
                 lib = lambda i: h @ wb[i % layers]  # noqa: E731
+            link = tk.gemv_link(torch, h, h0)
             out_bytes = 4 if k_major else 2
             b_ms, b_by = bound(K * N + 4 * N + 2 * M * K + out_bytes * M * N, 2.0 * M * K * N)
-            r = dict(K=K, N=N, M=M, device_ms=tk.graph_ms(run), host_us=tk.host_us(run),
-                     plain_ms=tk.graph_ms(twin), library_ms=tk.graph_ms(lib), bound_ms=b_ms,
-                     bound_by=b_by)
+            dev_ms, link_ms = tk.chained_ms(run, link)
+            lib_ms, _ = tk.chained_ms(lib, link)
+            r = dict(K=K, N=N, M=M, device_ms=dev_ms, add_ms=link_ms,
+                     back_to_back_ms=tk.graph_ms(run), host_us=tk.host_us(run),
+                     plain_ms=tk.graph_ms(twin), library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
             r["bound_frac"] = b_ms / r["device_ms"]
             recs[f"{name}_m{M}"] = r
-            log(f"  int8_gemv [{name} {K}x{N}, M={M}]: device {r['device_ms'] * 1e3:.1f} us/call, "
+            log(f"  int8_gemv [{name} {K}x{N}, M={M}]: device {dev_ms * 1e3:.2f} us/call "
+                f"(with an add between calls, less the add's own {link_ms * 1e3:.2f} us; "
+                f"back to back {r['back_to_back_ms'] * 1e3:.2f} us), "
                 f"host {r['host_us']:.1f} us/call, "
                 f"bound {b_ms * 1e3:.1f} us by {b_by} ({100 * r['bound_frac']:.1f}%), "
                 f"cast+matmul {r['plain_ms'] * 1e3:.1f} us, matmul on bf16 weight "
-                f"{r['library_ms'] * 1e3:.1f} us")
+                f"{lib_ms * 1e3:.2f} us")
             if M == 8:
-                for key, val in (("ms", r["device_ms"]), ("plain_ms", r["plain_ms"]),
-                                 ("library_ms", r["library_ms"]), ("bound_ms", b_ms)):
+                for key, val in (("ms", dev_ms), ("plain_ms", r["plain_ms"]),
+                                 ("library_ms", lib_ms), ("bound_ms", b_ms)):
                     step[key] += layers * val
         del q, sc, wb
         torch.cuda.empty_cache()
@@ -462,10 +469,10 @@ async def measured_load(torch, engine, prompts, max_tokens, seeds, what, card):
     return out, traces
 
 
-async def idle_share(torch, prompts, max_tokens, seeds, what, card) -> float:
+async def idle_share(torch, prompts, max_tokens, seeds, what, card):
     """Serve the same seeded load again under the torch profiler (card
     activity only): the device's idle share, 1 - (time any kernel or copy
-    ran) / wall."""
+    ran) / wall.  Returns (idle share, the trace)."""
     from project_morpheus_tpu_torch.tools.profile_serving import device_trace
 
     torch.cuda.synchronize()
@@ -477,7 +484,20 @@ async def idle_share(torch, prompts, max_tokens, seeds, what, card) -> float:
     log(f"  {what}, profiled rerun: {wall:.3f} s, device busy {busy:.3f} s, idle share "
         f"{100 * (1 - busy / wall):.1f}% (profiler start and trace read: "
         f"{time.perf_counter() - t0 - wall:.1f} s) [{card}]")
-    return 1 - busy / wall
+    return 1 - busy / wall, trace
+
+
+# the earlier GEMV design (per-lane register loads, a ticket-reduced K split;
+# commit d980781) in tools/profile_serving.py's short-prompt window on an
+# NVIDIA H100 80GB HBM3 at 700 W: projections + lm_head, ms a frame (PERF.md)
+EARLIER_GEMV_MS_A_FRAME = (12.92, 1.83)
+
+
+def gemv_ms_a_frame(trace, frames: int):
+    """Device ms a frame of the GEMV's (K, N) and (N, K) kernels in a trace."""
+    kn = sum(us for name, (us, _) in trace["ops"].items() if "gemv_kn" in name)
+    nk = sum(us for name, (us, _) in trace["ops"].items() if "gemv_nk" in name)
+    return kn / frames / 1e3, nk / frames / 1e3
 
 
 HTTP_TEXT, HTTP_TOKENS = "Hello from the card.", 7 * 8
@@ -507,8 +527,9 @@ async def phase_http(card, np):
     log(f"http: POST /v1/audio/speech -> RIFF WAV, {len(body) - 44} PCM bytes [{card}]")
 
 
-async def serving_phases(card: str, records) -> None:
-    """Phases 4-6 in one event loop (the engines' queues live in it)."""
+async def serving_phases(card: str, records) -> str:
+    """Phases 4-6 in one event loop (the engines' queues live in it);
+    returns the line on the GEMV's serving time."""
     import numpy as np
     import torch
 
@@ -550,7 +571,16 @@ async def serving_phases(card: str, records) -> None:
     records[2]["launches"] = launches["int8_gemv"]
     log(f"  main path launches (graph replays counted) {launches}, graphs replayed "
         f"{eng.programs.replays} [{card}]")
-    await idle_share(torch, prompts, TOKENS_PER_REQUEST, seeds, "k=1", card)
+    steps0 = eng.steps
+    _, trace = await idle_share(torch, prompts, TOKENS_PER_REQUEST, seeds, "k=1", card)
+    kn, nk = gemv_ms_a_frame(trace, max(1, (eng.steps - steps0) // eng.steps_per_sync))
+    records[2]["serving_gemv_ms_a_frame"] = [kn, nk]
+    gemv_line = (f"int8 GEMV in the k=1 serving load, device ms a frame: {kn:.3f} (K, N) + "
+                 f"{nk:.3f} (N, K) = {kn + nk:.3f}; earlier design "
+                 f"{EARLIER_GEMV_MS_A_FRAME[0]} + {EARLIER_GEMV_MS_A_FRAME[1]} = "
+                 f"{sum(EARLIER_GEMV_MS_A_FRAME):.2f} (short-prompt window of "
+                 f"tools/profile_serving.py, commit d980781, NVIDIA H100 80GB HBM3, 700 W) [{card}]")
+    log(gemv_line)
 
     # a cold burst of equal long prompts: J-batched prefill rounds
     rounds0 = dict(eng.prefill_rounds)
@@ -619,6 +649,7 @@ async def serving_phases(card: str, records) -> None:
     log(f"  attn_impl auto: warmup {n} programs in {secs:.2f} s; dense frame programs "
         f"replayed (bucket, attn, steps, frames, ...: replays) {dense} [{card}]")
     await rt3.engine.close()
+    return gemv_line
 
 
 def run(card: str) -> None:
@@ -643,8 +674,9 @@ def run(card: str) -> None:
     phase_reference(torch, dev)
     phase_graphs(torch, dev)
 
-    asyncio.run(serving_phases(card, records))
+    gemv_line = asyncio.run(serving_phases(card, records))
 
+    print(gemv_line)
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,9 +5,8 @@
 // Not a Pallas kernel: it replaces XLA's fused dequant-dot of the JAX
 // package's matmul_maybe_quant (project_morpheus_tpu/model/quant.py:61-66)
 // and tied_lm_head_logits (:170-175), where XLA folds the int8 -> bf16 cast
-// into the dot.  The eager port wrote a bf16 copy of every weight on every
-// call instead (1 + 2 + 2 bytes moved per weight byte).  Two layouts, both
-// read in place:
+// into the dot.  Two layouts, both read in place (no bf16 copy of a weight
+// is ever written):
 //   (K, N), N contiguous: wqkv, wo, wgu, wd (one layer of the stacked
 //                         (L, in, out) weights), bf16 output;
 //   (N, K), K contiguous: the tied embedding (157,184 x 3072) as lm_head,
@@ -24,64 +23,185 @@
 //   lm_head  482.9 MB    144 us
 //   one decode step (28 layers + lm_head): 3.30 GB, 0.99 ms
 //
-// Design against that bound:
-// - Every weight byte is loaded once with 16-byte loads, neighbouring lanes
-//   on neighbouring bytes, and converted int8 -> fp32 -> bf16 in registers
-//   (byte permute into 0x4B0000uu, one float subtract; exact for |x| <= 127).
-// - The products run on tensor cores, mma.sync m16n8k16 bf16 -> fp32.  The
-//   reduction order and the output column order inside a warp are free, so
-//   each lane feeds the mma the bytes it loaded, without a shuffle:
-//   (K, N): the weights are A (16 output columns on M) and the h rows B (8
-//     rows on N; two n8 tiles for M > 8).  A lane loads 16 consecutive
-//     columns of the 4 weight rows of its k slots; bytes t and t + 8 of its
-//     chunk are its two A rows of mma tile t, so a warp covers 128 columns
-//     with 8 tiles a k16 step and no product is spent on padding rows.
-//   (N, K): the h rows are A (padded to 16) and the weights B.  A lane loads
-//     16 consecutive k of one weight row; they feed 4 k16 steps, h read in
-//     the same k order.  Each warp takes 8-row tiles of the table in turn
-//     over a grid sized to the card (small units, so no partial last wave).
-// - Loads of several k steps are issued before their products (4 steps for
-//   M <= 8), so each SM keeps ~64 KB of weights in flight.
-// - (K, N): K is split over the 8 warps of a block and over blockIdx.y, the
-//   grid sized to about one block per SM (two fit; more splits only add
-//   partials to reduce).  The warps reduce in shared memory in a fixed
-//   order; each block stores its partial, and the last block of a column
-//   tile to finish (an atomic ticket) sums the partials in split order,
-//   four splits' loads in flight at a time, and writes the output.  Fixed
-//   orders throughout: a replayed graph gives the same bits as an eager
-//   call.
-// - fp32 accumulation; the output is rounded once (the plain twin rounds
-//   the product, the scale and the scaled output to bf16: up to about two
+// What held the earlier design back (per-lane 16-byte loads into registers,
+// split-K partials in global memory summed by the last block of a column
+// tile, found by an atomic ticket), measured by skipping parts of it
+// (tools/kernel_ablation.py gemv, NVIDIA H100 80GB HBM3 at 700 W): at wo,
+// 11.7 us a call = 1.2 us for an empty grid, 4.6 us more for the loads
+// alone, 3.2 us more for the arithmetic, which a warp ran only after its
+// loads landed, and 2.8 us for the ticket's tail; at lm_head the
+// arithmetic added 90 us to 169 us of loads.  This design answers each:
+//
+// - Weights stream through a shared-memory ring by TMA.  One producer
+//   thread issues 2-D tensor copies (cp.async.bulk.tensor) of weight tiles
+//   into a ring of stages, each completing on an mbarrier with its byte
+//   count; eight consumer warps convert and multiply the stages that have
+//   landed and hand each stage back (a second mbarrier) once its bytes
+//   have reached the tensor cores.  Loads no longer wait for arithmetic:
+//   the ring keeps 72-80 KB of every block in flight for the whole call.
+//   Tiles are 128 bytes wide and copied with the 128-byte swizzle, so the
+//   consumers' 16-byte shared loads hit all 32 banks.
+// - Weight copies start before the previous kernel has finished.  The
+//   kernel is launched as a programmatic dependent launch; the producer
+//   fills the ring with weights (which do not depend on that kernel), then
+//   runs griddepcontrol.wait, and only then copies the activations h into
+//   the same stages.  The launch and the first weight bytes overlap the
+//   previous kernel's tail.  Captured into a CUDA graph, the launch keeps
+//   its programmatic edge.  The scales are read at the start, too.  So
+//   the kernel just before a call must not write that call's weights.
+// - (K, N): split-K is reduced inside a thread-block cluster.  A column
+//   tile of 128 outputs is one cluster of 1, 2, 4 or 8 blocks along y;
+//   each block takes every cs-th stage of 128 k rows.  Warps sum in
+//   shared memory in warp order; each block stores each sum into the
+//   shared memory of the block that finishes that output (distributed
+//   shared memory), at its own rank; after one cluster barrier each block
+//   sums its share of the tile's outputs in rank order, scales them and
+//   writes them row by row.  No global partials, no ticket, no second
+//   pass, and a fixed summation order: a replayed graph gives the same
+//   bits as an eager call.  The wrapper (ops/int8_gemv.py, k_splits) takes
+//   the largest cluster whose grid has at most one block a SM: at the 3B
+//   shapes every block is resident at once, each on an SM of its own.
+//   (Clusters of 3, 5 or 6 blocks, which would use more of the SMs, were
+//   measured slower: they run as if they had 4 or 8.)
+// - (N, K): a persistent grid of one block a SM; h (all of K) is copied
+//   into shared memory once, and the ring streams 64-row tiles of the
+//   table, every row of a tile over all of K in one warp, so no reduction
+//   is needed; two accumulators take the even and odd mma steps, and the
+//   scales of a tile are read when it starts.
+// - Products on tensor cores, mma.sync m16n8k16 bf16 -> fp32, after an
+//   exact int8 -> bf16 conversion in integer operations (cvt2).  The
+//   reduction order and the output order inside a warp are free, so each
+//   lane feeds the mma the bytes it loaded, without a shuffle.  fp32
+//   accumulation; the output is rounded once (the plain twin rounds the
+//   product, the scale and the scaled output to bf16: up to about two
 //   bf16 ulps apart).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kCols = 128;       // (K, N): columns of a block, 8 lane groups x 16 bytes
-constexpr int kMaxTiles = 8192;  // (K, N): column tiles with a ticket counter
+constexpr int kCons = 8;                    // consumer warps
+constexpr int kThreads = (kCons + 1) * 32;  // and one producer warp
+constexpr int kAlign = 1024;                // the 128-byte swizzle repeats every 1 KB
 
-// Tickets of the (K, N) split reduction, one per column tile; the last
-// block of a tile sets its counter back to 0.
-__device__ unsigned int g_tickets[kMaxTiles];
+// (K, N): a stage is 128 k rows of a 128-column tile, plus h at those k
+constexpr int kCols = 128;
+constexpr int kStageK = 128;
+// (N, K): a stage is 128 k bytes of a 64-row tile; h stays whole
+constexpr int kTileRows = kCons * 8;
+constexpr int kStageNK = 128;
+constexpr int kStagesNK = 8;
 
-__device__ __forceinline__ float i8_to_f32(uint32_t flipped, int sel) {
-  // byte `sel` of a word pre-flipped by ^0x80808080 -> exact fp32:
-  // 0x4B0000uu is 2^23 + u, u = x + 128
-  return __uint_as_float(__byte_perm(flipped, 0x4B000000u, 0x7440 | sel)) - 8388736.f;
+// ------------------------------------------------------------ primitives
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-// bytes `sel` of two flipped words (k and k + 1) -> bf16x2, k in the low half
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// 2-D tensor copy of one box into this block's shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wait_previous_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void consumer_sync() {  // the consumer warps only
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kCons * 32) : "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// store v at this shared address in the block of cluster rank `rank`
+__device__ __forceinline__ void st_cluster(uint32_t addr, uint32_t rank, float v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(v) : "memory");
+}
+
+__device__ __forceinline__ uint4 lds16(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t lds4(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// byte offset of 16-byte chunk `chunk` of 128-byte row `row` of a tile
+// copied with the 128-byte swizzle (chunk index XOR row mod 8)
+__device__ __forceinline__ uint32_t swz(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
+}
+
+// Two int8 values, in bytes 0 and 2 of `w`, -> exact bf16x2 (byte 0 in
+// the low half).  With s the sign bit and l the low 7 bits of x,
+// x = (128 + l) - 128 (1 + s): both terms are bf16 bit patterns (0x4300 | l
+// and 0x4300 | s << 7), and their difference is exact.  Three integer
+// operations and one bf16x2 subtract, no float conversion.
+__device__ __forceinline__ uint32_t cvt2(uint32_t w) {
+  const uint32_t mag = (w & 0x007F007Fu) | 0x43004300u;
+  const uint32_t off = (w & 0x00800080u) | 0x43004300u;
+  const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&mag),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&off));
+  return *reinterpret_cast<const uint32_t*>(&d);
+}
+
+// byte `sa` of `a` (low half) and byte `sb` of `b` (high half) -> bf16x2
+__device__ __forceinline__ uint32_t bf16x2_of(uint32_t a, int sa, uint32_t b, int sb) {
+  return cvt2(__byte_perm(a, b, sa | (sa << 4) | ((sb + 4) << 8) | ((sb + 4) << 12)));
+}
+
+// byte `sel` of two words (k and k + 1) -> bf16x2, k in the low half
 __device__ __forceinline__ uint32_t pair(uint32_t lo, uint32_t hi, int sel) {
-  return pack_bf16(i8_to_f32(lo, sel), i8_to_f32(hi, sel));
+  return bf16x2_of(lo, sel, hi, sel);
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
@@ -93,282 +213,455 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint4 load16(const void* p, bool ok) {
-  if (!ok) return make_uint4(0, 0, 0, 0);
-  return __ldg(reinterpret_cast<const uint4*>(p));
-}
-
-__device__ __forceinline__ uint32_t load4(const void* p, bool ok) {
-  return ok ? __ldg(reinterpret_cast<const uint32_t*>(p)) : 0u;
-}
-
 __device__ __forceinline__ uint32_t word(const uint4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-__device__ __forceinline__ uint4 flip(uint4 v) {
-  return make_uint4(v.x ^ 0x80808080u, v.y ^ 0x80808080u, v.z ^ 0x80808080u,
-                    v.w ^ 0x80808080u);
-}
-
-__device__ __forceinline__ void store(void* out, long long i, float v, bool f32) {
-  if (f32) static_cast<float*>(out)[i] = v;
-  else static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(v);
-}
-
 // ------------------------------------------------------------ (K, N)
 
-// Grid (ceil(N / 128), n_ksplit).  Warp w of block (x, y) runs the k16 steps
-// y * 8 + w, then every 8 * n_ksplit steps on, kU steps' loads at a time.
-// kRows = 8 or 16: the h rows, as one or two n8 tiles.
-template <int kRows, int kU>
+// Shared memory: the ring (kStages stages: the weight box, kStageK rows x
+// 128 bytes, then h as two boxes of 64 k, kRows rows x 128 bytes each, all
+// 1 KB aligned), the inbox where the cluster's blocks leave this block's
+// share of their partial sums, and the tile's 128 scales: under half the
+// SM's, so two blocks could share one.
+template <int kRows>
+struct KN {
+  static constexpr int kStages = 4;
+  static constexpr int kW = kStageK * kCols;
+  static constexpr int kH = kRows * 128;
+  static constexpr int kStage = kW + 2 * kH;
+  static constexpr int kSlots = (kRows / 8) * 8 * 4;  // accumulator floats a lane
+  static constexpr int kSums = kSlots * 32;           // of a tile
+  static constexpr int kInbox = kStages * kStage;
+  static constexpr int kScale = kInbox + (kSums + 8) * 4;
+  static constexpr int kSmem = kScale + kCols * 4 + kAlign;
+  static_assert(kCons * kSums * 4 <= kStages * kStage, "warp sums fit in the ring");
+};
+
+// Grid (ceil(N / 128), cs), clusters (1, cs, 1), cs 1, 2, 4 or 8: cluster x
+// is column tile x; its block of rank r takes the stages r, r + cs, ... of
+// ceil(K / 128).  Consumer warp c takes k rows [16c, 16c + 16) of a stage.
+template <int kRows>
 __global__ void __launch_bounds__(kThreads, 2)
-gemv_kn(const __nv_bfloat16* __restrict__ h, const int8_t* __restrict__ q,
-        const float* __restrict__ scale, void* __restrict__ out, float* __restrict__ part,
-        int M, int K, int N, int n_ksplit, bool out_f32) {
+gemv_kn(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUtensorMap hmap,
+        const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int M, int K, int N) {
+  using G = KN<kRows>;
   constexpr int kN8 = kRows / 8;
-  extern __shared__ float red[];  // (kWarps, kRows, kCols)
-  __shared__ bool last;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gid = lane >> 2, tid4 = lane & 3;
+  constexpr int kStages = G::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  const uint32_t base = (smem_u32(smem_raw) + kAlign - 1) & ~uint32_t(kAlign - 1);
+  uint8_t* const smem = smem_raw + (base - smem_u32(smem_raw));
+  float* const inbox = reinterpret_cast<float*>(smem + G::kInbox);
+  float* const scale_s = reinterpret_cast<float*>(smem + G::kScale);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cs = gridDim.y;
+  const int rank = static_cast<int>(cluster_rank());
   const int n_blk = blockIdx.x * kCols;
-  const int col = n_blk + gid * 16;
-  const bool col_ok = col < N;
-  const int steps = K / 16;
-  const int stride = n_ksplit * kWarps;
-  const uint32_t* h32 = reinterpret_cast<const uint32_t*>(h);
+  const int stages = (K + kStageK - 1) / kStageK;
+  const int mine = rank < stages ? (stages - rank + cs - 1) / cs : 0;
+  const int per = (M * kCols + cs - 1) / cs;  // outputs of a tile each block finishes
 
-  float acc[kN8][8][4];
-#pragma unroll
-  for (int r = 0; r < kN8; ++r)
-#pragma unroll
-    for (int t = 0; t < 8; ++t) acc[r][t][0] = acc[r][t][1] = acc[r][t][2] = acc[r][t][3] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), kCons);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  for (int s = blockIdx.y * kWarps + warp; s < steps; s += kU * stride) {
-    uint4 w[kU][4];
-    uint32_t b[kU][kN8][2];
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const int ss = s + u * stride;
-      const bool ok = ss < steps;
-      const int k0 = ss * 16 + tid4 * 2;
-      const int8_t* base = q + (long long)k0 * N + col;
-      w[u][0] = load16(base, ok && col_ok);
-      w[u][1] = load16(base + N, ok && col_ok);
-      w[u][2] = load16(base + 8LL * N, ok && col_ok);
-      w[u][3] = load16(base + 9LL * N, ok && col_ok);
-#pragma unroll
-      for (int r = 0; r < kN8; ++r) {
-        const int row = gid + 8 * r;
-        const long long at = ((long long)row * K + k0) / 2;
-        b[u][r][0] = load4(h32 + at, ok && row < M);
-        b[u][r][1] = load4(h32 + at + 4, ok && row < M);
+  if (warp == kCons) {
+    // producer: weights of the first stages before the previous kernel
+    // ends, h after it
+    if (lane == 0) {
+      const int first = min(mine, kStages);
+      for (int j = 0; j < first; ++j) {
+        const uint32_t st = base + j * G::kStage;
+        mbar_expect_tx(smem_u32(&full[j]), G::kStage);
+        tma_load(st, &wmap, n_blk, (rank + j * cs) * kStageK, smem_u32(&full[j]));
+      }
+      wait_previous_grid();
+      for (int j = 0; j < mine; ++j) {
+        const int slot = j % kStages;
+        const uint32_t st = base + slot * G::kStage, bar = smem_u32(&full[slot]);
+        const int k0 = (rank + j * cs) * kStageK;
+        if (j >= kStages) {
+          mbar_wait(smem_u32(&empty[slot]), ((j / kStages) - 1) & 1);
+          mbar_expect_tx(bar, G::kStage);
+          tma_load(st, &wmap, n_blk, k0, bar);
+        }
+        tma_load(st + G::kW, &hmap, k0, 0, bar);
+        tma_load(st + G::kW + G::kH, &hmap, k0 + 64, 0, bar);
       }
     }
+    __syncwarp();
+  } else {
+    // the scales are weights too: read them now, not after the last stage
+    if (threadIdx.x < kCols)
+      scale_s[threadIdx.x] = n_blk + threadIdx.x < N ? scale[n_blk + threadIdx.x] : 0.f;
+    const int gid = lane >> 2, tid4 = lane & 3;
+    float acc[kN8][8][4];
 #pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const uint4 r0 = flip(w[u][0]), r1 = flip(w[u][1]), r8 = flip(w[u][2]), r9 = flip(w[u][3]);
+    for (int r = 0; r < kN8; ++r)
+#pragma unroll
+      for (int t = 0; t < 8; ++t) acc[r][t][0] = acc[r][t][1] = acc[r][t][2] = acc[r][t][3] = 0.f;
+
+    // this warp's rows of a stage: 16 warp + 2 tid4 + {0, 1, 8, 9}; its h:
+    // box warp / 4, chunk 2 (warp % 4) (+1 for k + 8), word tid4
+    const int row0 = 16 * warp + 2 * tid4;
+    const int hbox = (warp >> 2) * G::kH, hchunk = 2 * (warp & 3);
+    for (int j = 0; j < mine; ++j) {
+      const int slot = j % kStages;
+      const uint32_t st = base + slot * G::kStage;
+      mbar_wait(smem_u32(&full[slot]), (j / kStages) & 1);
+      const uint4 r0 = lds16(st + swz(row0, gid));
+      const uint4 r1 = lds16(st + swz(row0 + 1, gid));
+      const uint4 r8 = lds16(st + swz(row0 + 8, gid));
+      const uint4 r9 = lds16(st + swz(row0 + 9, gid));
+      uint32_t b[kN8][2];
+#pragma unroll
+      for (int r = 0; r < kN8; ++r) {
+        const uint32_t hrow = st + G::kW + hbox + (gid + 8 * r) * 128 + 4 * tid4;
+        b[r][0] = lds4(hrow + ((hchunk ^ gid) << 4));
+        b[r][1] = lds4(hrow + (((hchunk + 1) ^ gid) << 4));
+      }
 #pragma unroll
       for (int t = 0; t < 8; ++t) {
-        const int wi = t >> 2, bi = t & 3;  // byte t, and byte t + 8 two words on
+        // A rows: columns gid * 16 + t (bytes t) and + 8 (bytes t + 8)
+        const int wi = t >> 2, bi = t & 3;
         const uint32_t a0 = pair(word(r0, wi), word(r1, wi), bi);
         const uint32_t a1 = pair(word(r0, wi + 2), word(r1, wi + 2), bi);
         const uint32_t a2 = pair(word(r8, wi), word(r9, wi), bi);
         const uint32_t a3 = pair(word(r8, wi + 2), word(r9, wi + 2), bi);
 #pragma unroll
-        for (int r = 0; r < kN8; ++r) mma_bf16(acc[r][t], a0, a1, a2, a3, b[u][r][0], b[u][r][1]);
+        for (int r = 0; r < kN8; ++r) mma_bf16(acc[r][t], a0, a1, a2, a3, b[r][0], b[r][1]);
       }
+      // the stage goes back once its bytes have reached the tensor cores
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_u32(&empty[slot]));
+    }
+
+    // warp sums, fragment by fragment (sum (r * 8 + t) * 4 + e of lane), in
+    // the ring, which every stage has left; each sum over the warps in
+    // order goes to the inbox of the block that finishes it, at this
+    // block's rank
+    float* red = reinterpret_cast<float*>(smem);
+    consumer_sync();
+#pragma unroll
+    for (int r = 0; r < kN8; ++r)
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          red[(warp * G::kSlots + (r * 8 + t) * 4 + e) * 32 + lane] = acc[r][t][e];
+    consumer_sync();
+    for (int i = threadIdx.x; i < G::kSums; i += kCons * 32) {
+      // sum (r * 8 + t) * 4 + e of lane (gid, tid4): h row 8 r + 2 tid4 +
+      // (e & 1), column gid * 16 + t + 8 (e >> 1); output m * 128 + column
+      const int ln = i & 31, slot = i >> 5;
+      const int e = slot & 3, t = (slot >> 2) & 7, r = slot >> 5;
+      const int m = 8 * r + 2 * (ln & 3) + (e & 1);
+      if (m >= M) continue;
+      const int o = m * kCols + (ln >> 2) * 16 + t + 8 * (e >> 1);
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kCons; ++w) s += red[w * G::kSums + i];
+      const int owner = o / per;
+      st_cluster(smem_u32(inbox + rank * per + o - owner * per), owner, s);
     }
   }
 
-  // tile t: mma row g -> column g * 16 + t, row g + 8 -> column g * 16 + t + 8;
-  // mma column c of n8 tile r -> h row 8 r + c
-  float* mine = red + warp * kRows * kCols;
-#pragma unroll
-  for (int r = 0; r < kN8; ++r)
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const int m = 8 * r + tid4 * 2, c = gid * 16 + t;
-      mine[m * kCols + c] = acc[r][t][0];
-      mine[(m + 1) * kCols + c] = acc[r][t][1];
-      mine[m * kCols + c + 8] = acc[r][t][2];
-      mine[(m + 1) * kCols + c + 8] = acc[r][t][3];
+  // every block's sums are in their inboxes: each block finishes its slice
+  // of the tile's outputs (row by row, so the stores coalesce), the ranks
+  // summed in order
+  cluster_sync();
+  if (warp < kCons) {
+    for (int j = threadIdx.x; j < per && rank * per + j < M * kCols; j += kCons * 32) {
+      float s = 0.f;
+      for (int q = 0; q < cs; ++q) s += inbox[q * per + j];
+      const int o = rank * per + j, m = o / kCols, c = o % kCols;
+      if (n_blk + c < N) out[(long long)m * N + n_blk + c] = __float2bfloat16_rn(s * scale_s[c]);
     }
-  __syncthreads();
-  const long long MN = (long long)M * N;
-  for (int i = threadIdx.x; i < M * kCols; i += kThreads) {
-    const int r = i / kCols, c = i % kCols, n = n_blk + c;
-    if (n >= N) continue;
-    float sum = 0.f;
-#pragma unroll
-    for (int wp = 0; wp < kWarps; ++wp) sum += red[(wp * kRows + r) * kCols + c];
-    if (n_ksplit == 1) store(out, (long long)r * N + n, sum * scale[n], out_f32);
-    else part[blockIdx.y * MN + (long long)r * N + n] = sum;
   }
-  if (n_ksplit == 1) return;
-  __threadfence();  // this block's partial is visible before its ticket
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(&g_tickets[blockIdx.x], 1u) == (unsigned)n_ksplit - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  // each thread sums its kOut outputs over the splits in split order, with
-  // the loads of kBatch splits of all its outputs in flight at once
-  constexpr int kOut = kRows * kCols / kThreads, kBatch = 4;
-  float sum[kOut];
-#pragma unroll
-  for (int o = 0; o < kOut; ++o) sum[o] = 0.f;
-  for (int sp0 = 0; sp0 < n_ksplit; sp0 += kBatch) {
-    float v[kOut][kBatch];
-#pragma unroll
-    for (int o = 0; o < kOut; ++o) {
-      const int i = threadIdx.x + o * kThreads, r = i / kCols, n = n_blk + i % kCols;
-      const float* p = part + (long long)r * N + n;
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j)
-        v[o][j] = (r < M && n < N && sp0 + j < n_ksplit) ? __ldcg(p + (sp0 + j) * MN) : 0.f;
-    }
-#pragma unroll
-    for (int o = 0; o < kOut; ++o)
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j) sum[o] += v[o][j];
-  }
-#pragma unroll
-  for (int o = 0; o < kOut; ++o) {
-    const int i = threadIdx.x + o * kThreads, r = i / kCols, n = n_blk + i % kCols;
-    if (r < M && n < N) store(out, (long long)r * N + n, sum[o] * scale[n], out_f32);
-  }
-  if (threadIdx.x == 0) g_tickets[blockIdx.x] = 0;
 }
 
 // ------------------------------------------------------------ (N, K)
 
-// Warp-sized units: global warp w takes 8-row tiles w, w + warps, ... of the
-// table, the whole of K for each, 64 k a trip (kU trips' loads at a time).
-// Lane (gid, tid4) reads k [tid4 * 16, +16) of a trip's 64-wide slab of row
-// tile * 8 + gid; mma step s takes bytes 4s..4s+3, and A the same k of h.
-template <int kRows, int kU>
-__global__ void __launch_bounds__(kThreads)
-gemv_nk(const __nv_bfloat16* __restrict__ h, const int8_t* __restrict__ q,
-        const float* __restrict__ scale, void* __restrict__ out, int M, int K, int N,
-        bool out_f32) {
-  const int lane = threadIdx.x & 31;
+// Shared memory: h as two boxes of 64 k (kRows rows x 128 bytes each) for
+// each 128 k (zeros past K), then the ring of kStagesNK boxes of 64 rows x
+// 128 k bytes.
+template <int kRows>
+struct NK {
+  static constexpr int kW = kTileRows * kStageNK;
+  static constexpr int kHBox = kRows * 128;
+  __host__ __device__ static int h_boxes(int K) { return 2 * ((K + kStageNK - 1) / kStageNK); }
+  static int smem(int K) { return h_boxes(K) * kHBox + kStagesNK * kW + kAlign; }
+};
+
+// After the previous kernel: all of h on one barrier.
+template <int kRows>
+__device__ __forceinline__ void load_h_nk(const CUtensorMap* hmap, uint32_t hs, int K,
+                                          uint32_t bar) {
+  wait_previous_grid();
+  const int boxes = NK<kRows>::h_boxes(K);
+  mbar_expect_tx(bar, boxes * NK<kRows>::kHBox);
+  for (int b = 0; b < boxes; ++b) tma_load(hs + b * NK<kRows>::kHBox, hmap, b * 64, 0, bar);
+}
+
+// Persistent grid: block b takes the 64-row tiles b, b + gridDim.x, ...;
+// consumer warp c takes rows [8c, 8c + 8) of a tile over all of K.
+template <int kRows>
+__global__ void __launch_bounds__(kThreads, 1)
+gemv_nk(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUtensorMap hmap,
+        const float* __restrict__ scale, float* __restrict__ out, int M, int K, int N) {
+  using G = NK<kRows>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStagesNK], empty[kStagesNK], hbar;
+  const uint32_t base = (smem_u32(smem_raw) + kAlign - 1) & ~uint32_t(kAlign - 1);
+  const uint32_t hs = base, ring = base + G::h_boxes(K) * G::kHBox;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tiles = (N + kTileRows - 1) / kTileRows;
+  const int ksteps = (K + kStageNK - 1) / kStageNK;
+  const int my_tiles = blockIdx.x < tiles ? (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
+  const int total = my_tiles * ksteps;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStagesNK; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), kCons);
+    }
+    mbar_init(smem_u32(&hbar), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kCons) {
+    // producer: the ring's first weight tiles before the previous kernel
+    // ends, then h, then the rest of the stream
+    if (lane == 0) {
+      const int first = min(total, kStagesNK);
+      for (int g = 0; g < total; ++g) {
+        const int slot = g % kStagesNK;
+        const uint32_t bar = smem_u32(&full[slot]);
+        if (g == first) load_h_nk<kRows>(&hmap, hs, K, smem_u32(&hbar));
+        if (g >= kStagesNK) mbar_wait(smem_u32(&empty[slot]), ((g / kStagesNK) - 1) & 1);
+        mbar_expect_tx(bar, G::kW);
+        const int tile = blockIdx.x + (g / ksteps) * gridDim.x;
+        tma_load(ring + slot * G::kW, &wmap, (g % ksteps) * kStageNK, tile * kTileRows, bar);
+      }
+      if (first == total) load_h_nk<kRows>(&hmap, hs, K, smem_u32(&hbar));
+    }
+    __syncwarp();
+    return;
+  }
+
   const int gid = lane >> 2, tid4 = lane & 3;
-  const int warps = gridDim.x * kWarps;
-  const int tiles = (N + 7) / 8, trips = K / 64;
-  const bool row0 = gid < M, row1 = kRows > 8 && gid + 8 < M;
-  const __nv_bfloat16* h0 = h + (long long)gid * K + tid4 * 16;
-  const __nv_bfloat16* h1 = h + (long long)(gid + 8) * K + tid4 * 16;
-
-  for (int tile = blockIdx.x * kWarps + (threadIdx.x >> 5); tile < tiles; tile += warps) {
-    const int n = tile * 8 + gid;
-    const int8_t* wrow = q + (long long)n * K + tid4 * 16;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int it = 0; it < trips; it += kU) {
-      uint4 w[kU], x0[kU][2], x1[kU][2];
+  const int wrow = 8 * warp + gid;  // this lane's row of a tile
+  mbar_wait(smem_u32(&hbar), 0);
+  int g = 0;
+  for (int it = 0; it < my_tiles; ++it) {
+    const int tile = blockIdx.x + it * gridDim.x;
+    // C: h row gid (+ 8), table rows n, n + 1; their scales are read now,
+    // so no load waits at the tile's end
+    const int n = tile * kTileRows + 8 * warp + 2 * tid4;
+    const float sc[2] = {n < N ? scale[n] : 0.f, n + 1 < N ? scale[n + 1] : 0.f};
+    // two accumulators, even and odd mma steps, so that each mma waits on
+    // the one before the last, not the last
+    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    for (int ks = 0; ks < ksteps; ++ks, ++g) {
+      const int slot = g % kStagesNK;
+      const uint32_t st = ring + slot * G::kW;
+      mbar_wait(smem_u32(&full[slot]), (g / kStagesNK) & 1);
+      // k bytes [32 tid4, +32) of the stage: chunks 2 tid4 and 2 tid4 + 1
+      const uint4 w0 = lds16(st + swz(wrow, 2 * tid4));
+      const uint4 w1 = lds16(st + swz(wrow, 2 * tid4 + 1));
+      // h at the same k: box 2 ks + tid4 / 2, chunks 4 (tid4 & 1) + 0..3
+      const uint32_t hb = hs + (2 * ks + (tid4 >> 1)) * G::kHBox;
+      uint4 x0[4], x1[4];
 #pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        const bool ok = it + u < trips;
-        const int k = (it + u) * 64;
-        w[u] = load16(wrow + k, ok && n < N);
-        x0[u][0] = load16(h0 + k, ok && row0);
-        x0[u][1] = load16(h0 + k + 8, ok && row0);
-        x1[u][0] = load16(h1 + k, ok && row1);
-        x1[u][1] = load16(h1 + k + 8, ok && row1);
+      for (int c = 0; c < 4; ++c) {
+        x0[c] = lds16(hb + swz(gid, 4 * (tid4 & 1) + c));
+        x1[c] = kRows > 8 ? lds16(hb + swz(gid + 8, 4 * (tid4 & 1) + c)) : make_uint4(0, 0, 0, 0);
       }
 #pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        const uint4 f = flip(w[u]);
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          // h words 2s, 2s + 1 of the lane's 16 k: elements 4s..4s+1, 4s+2..4s+3
-          const uint32_t a0 = word(x0[u][s >> 1], (2 * s) & 3);
-          const uint32_t a2 = word(x0[u][s >> 1], (2 * s + 1) & 3);
-          const uint32_t a1 = word(x1[u][s >> 1], (2 * s) & 3);
-          const uint32_t a3 = word(x1[u][s >> 1], (2 * s + 1) & 3);
-          const uint32_t fw = word(f, s);
-          const uint32_t b0 = pack_bf16(i8_to_f32(fw, 0), i8_to_f32(fw, 1));
-          const uint32_t b1 = pack_bf16(i8_to_f32(fw, 2), i8_to_f32(fw, 3));
-          mma_bf16(acc, a0, a1, a2, a3, b0, b1);
-        }
+      for (int s = 0; s < 8; ++s) {
+        // mma step s: k bytes 4s..4s+3 of the lane's 32
+        const uint32_t fw = word(s < 4 ? w0 : w1, s & 3);
+        const uint32_t b0 = bf16x2_of(fw, 0, fw, 1);
+        const uint32_t b1 = bf16x2_of(fw, 2, fw, 3);
+        const uint32_t a0 = word(x0[s >> 1], 2 * (s & 1));
+        const uint32_t a2 = word(x0[s >> 1], 2 * (s & 1) + 1);
+        const uint32_t a1 = word(x1[s >> 1], 2 * (s & 1));
+        const uint32_t a3 = word(x1[s >> 1], 2 * (s & 1) + 1);
+        mma_bf16(acc[s & 1], a0, a1, a2, a3, b0, b1);
       }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_u32(&empty[slot]));
     }
-    const int c = tile * 8 + tid4 * 2;
+    float sum[4];
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      if (c + e >= N) continue;
-      const float sc = scale[c + e];
-      if (row0) store(out, (long long)gid * N + c + e, acc[e] * sc, out_f32);
-      if (row1) store(out, (long long)(gid + 8) * N + c + e, acc[2 + e] * sc, out_f32);
+    for (int e = 0; e < 4; ++e) sum[e] = acc[0][e] + acc[1][e];
+#pragma unroll
+    for (int half = 0; half < kRows / 8; ++half) {
+      const int m = gid + 8 * half;
+      if (m >= M) continue;
+      float* row = out + (long long)m * N + n;
+      const float y0 = sum[2 * half] * sc[0], y1 = sum[2 * half + 1] * sc[1];
+      if (n + 1 < N && (N & 1) == 0) {
+        *reinterpret_cast<float2*>(row) = make_float2(y0, y1);  // 4 lanes: one 32-byte sector
+      } else {
+        if (n < N) row[0] = y0;
+        if (n + 1 < N) row[1] = y1;
+      }
     }
   }
 }
 
-template <int kRows, int kU>
-int launch_kn(const void* h, const void* q, const void* scale, void* out, void* part, int M,
-              int K, int N, int n_ksplit, bool out_f32, cudaStream_t stream) {
-  constexpr int smem = kWarps * kRows * kCols * (int)sizeof(float);
-  static bool sized = false;  // set on the first (eager) call, before any capture
-  if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gemv_kn<kRows, kU>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sized = true;
+// ------------------------------------------------------------ host side
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library links without -lcuda.
+using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+constexpr int kNoEncoder = -2, kEncodeFailed = -3;
+
+EncodeFn encoder() {
+  static EncodeFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeFn>(p);
   }
-  const dim3 grid((N + kCols - 1) / kCols, n_ksplit);
-  if (n_ksplit > 1 && (int)grid.x > kMaxTiles) return -1;
-  gemv_kn<kRows, kU><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(h), static_cast<const int8_t*>(q),
-      static_cast<const float*>(scale), out, static_cast<float*>(part), M, K, N, n_ksplit,
-      out_f32);
+  return fn;
+}
+
+// a row-major (rows, cols) matrix of `elem`-byte values, boxes of
+// (box_rows, box_cols) copied with the 128-byte swizzle, zeros past the edge
+int encode(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int elem, int rows,
+           int cols, int box_rows, int box_cols) {
+  const EncodeFn fn = encoder();
+  if (fn == nullptr) return kNoEncoder;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeFailed;
+}
+
+// Dynamic shared memory a block may use: the card's 227 KB, less 1 KB for
+// the kernels' static barriers.
+constexpr int kSmemLimit = 227 * 1024 - 1024;
+
+// Raise a kernel's dynamic shared memory limit to `bytes` where `sized`
+// (what it was raised to) is lower: on the first (eager) call of a shape,
+// before any capture.
+template <typename Kernel>
+cudaError_t size_smem(Kernel kernel, int& sized, int bytes) {
+  if (bytes <= sized) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) sized = bytes;
+  return err;
+}
+
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, dim3 grid, int cluster_y, int smem, cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = 1;
+  attr[1].val.clusterDim.y = cluster_y;
+  attr[1].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kRows, int kU>
+template <int kRows>
+int launch_kn(const void* h, const void* q, const void* scale, void* out, int M, int K, int N,
+              int cs, cudaStream_t stream) {
+  using G = KN<kRows>;
+  static int sized = 0;
+  cudaError_t err = size_smem(gemv_kn<kRows>, sized, G::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap wmap, hmap;
+  int st = encode(&wmap, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, N, kStageK, kCols);
+  if (st == 0) st = encode(&hmap, h, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, kRows, 64);
+  if (st != 0) return st;
+  return launch(gemv_kn<kRows>, dim3((N + kCols - 1) / kCols, cs), cs, G::kSmem, stream, wmap,
+                hmap, static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), M, K,
+                N);
+}
+
+template <int kRows>
 int launch_nk(const void* h, const void* q, const void* scale, void* out, int M, int K, int N,
-              bool out_f32, cudaStream_t stream) {
-  static int resident = 0;  // blocks the card holds at once, set on the first (eager) call
-  if (resident == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gemv_nk<kRows, kU>, kThreads, 0);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    resident = sms * per_sm;
-  }
-  const int tiles = (N + 7) / 8;
-  const int grid = min(resident, (tiles + kWarps - 1) / kWarps);
-  gemv_nk<kRows, kU><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(h), static_cast<const int8_t*>(q),
-      static_cast<const float*>(scale), out, M, K, N, out_f32);
-  return static_cast<int>(cudaGetLastError());
+              int blocks, cudaStream_t stream) {
+  using G = NK<kRows>;
+  const int smem = G::smem(K);
+  if (smem > kSmemLimit) return -1;
+  static int sized = 0;
+  cudaError_t err = size_smem(gemv_nk<kRows>, sized, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap wmap, hmap;
+  int st = encode(&wmap, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N, K, kTileRows, kStageNK);
+  if (st == 0) st = encode(&hmap, h, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, kRows, 64);
+  if (st != 0) return st;
+  return launch(gemv_nk<kRows>, dim3(blocks), 1, smem, stream, wmap, hmap,
+                static_cast<const float*>(scale), static_cast<float*>(out), M, K, N);
 }
 
 }  // namespace
 
-// Status: 0, a cudaError_t, or -1 for a shape the kernel does not take.
-extern "C" int mp_int8_gemv_kn(const void* h, const void* q, const void* scale, void* out,
-                               void* part, int M, int K, int N, int n_ksplit, int out_f32,
-                               void* stream) {
-  if (M < 1 || M > 16 || K % 16 != 0 || N % 16 != 0 || n_ksplit < 1) return -1;
-  if (n_ksplit > 1 && part == nullptr) return -1;
+// Status: 0, a cudaError_t, or a negative code of mp_error_string.
+// (K, N): `cs` blocks a cluster (1, 2, 4 or 8) split K; bf16 output.
+extern "C" int mp_int8_gemv_kn(const void* h, const void* q, const void* scale, void* out, int M,
+                               int K, int N, int cs, void* stream) {
+  if (M < 1 || M > 16 || K % 16 != 0 || N % 16 != 0 || cs < 1 || cs > 8 || (cs & (cs - 1)))
+    return -1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 8) return launch_kn<8, 4>(h, q, scale, out, part, M, K, N, n_ksplit, out_f32 != 0, st);
-  return launch_kn<16, 2>(h, q, scale, out, part, M, K, N, n_ksplit, out_f32 != 0, st);
+  if (M <= 8) return launch_kn<8>(h, q, scale, out, M, K, N, cs, st);
+  return launch_kn<16>(h, q, scale, out, M, K, N, cs, st);
 }
 
-extern "C" int mp_int8_gemv_nk(const void* h, const void* q, const void* scale, void* out,
-                               int M, int K, int N, int out_f32, void* stream) {
-  if (M < 1 || M > 16 || K % 64 != 0 || N < 1) return -1;
+// (N, K): `blocks` persistent blocks (one a SM); fp32 output.
+extern "C" int mp_int8_gemv_nk(const void* h, const void* q, const void* scale, void* out, int M,
+                               int K, int N, int blocks, void* stream) {
+  if (M < 1 || M > 16 || K % 16 != 0 || N < 1 || blocks < 1) return -1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 8) return launch_nk<8, 4>(h, q, scale, out, M, K, N, out_f32 != 0, st);
-  return launch_nk<16, 4>(h, q, scale, out, M, K, N, out_f32 != 0, st);
+  if (M <= 8) return launch_nk<8>(h, q, scale, out, M, K, N, blocks, st);
+  return launch_nk<16>(h, q, scale, out, M, K, N, blocks, st);
 }
 
 extern "C" const char* mp_error_string(int status) {
-  if (status == -1) return "shape not taken: M in [1, 16], K % 16 == 0 and N % 16 == 0 "
-                           "((K, N) layout, at most 8192 column tiles when K is split), "
-                           "K % 64 == 0 ((N, K) layout)";
+  if (status == -1) return "shape not taken: M in [1, 16], K % 16 == 0, and N % 16 == 0 with a "
+                           "cluster of 1, 2, 4 or 8 blocks ((K, N) layout), or h and the ring "
+                           "within 226 KB of shared memory ((N, K) layout)";
+  if (status == kNoEncoder) return "cuTensorMapEncodeTiled not found through the driver entry point";
+  if (status == kEncodeFailed) return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }

@@ -1,6 +1,9 @@
-"""What limits the decode-attention kernels: variants with one part skipped.
+"""What limits the hand-written kernels: variants with one part skipped.
 
     python -m project_morpheus_tpu_torch.tools.kernel_ablation [VARIANT ...]
+    python -m project_morpheus_tpu_torch.tools.kernel_ablation gemv [VARIANT ...]
+
+Decode attention:
 
 Each variant is ``ops/csrc`` with one edit to ``flash_decode.cuh``, built
 into ``ops/_build/ablation/<variant>`` and timed with
@@ -18,6 +21,25 @@ never checked.
 - ``stages2``: a 2-stage ring (a 4-stage one does not fit the bf16
   kernel's 64 KB stages in shared memory);
 - ``warps4``: 4 warps a block, 64-position tiles.
+
+The int8 GEMV (``gemv``): ``int8_gemv.cu`` with one edit, built the same
+way and timed at the five Orpheus-3B weight shapes at M = 8 rows
+(``time_kernels.gemv_shapes``), 28 stacked layers cycled so L2 is cold:
+``graph_ms`` over back-to-back calls, and ``chained_ms`` with a small
+dependent add between calls, as in serving.  The edits follow the design
+of the source they find (the ticket design of earlier commits, or the
+cluster design), so a parent commit's kernel is ablated by copying this
+file and ``time_kernels.py`` into a ``git archive`` of that commit and
+running it there:
+
+- ``kernel``: the source as it is;
+- ``loads_only``: every weight and activation load kept (their words
+  folded into one value that is never stored), the int8 -> bf16
+  conversion, the products and everything after the K loop skipped;
+- ``no_reduce``: the split-K reduction skipped: each block stops after its
+  own partial sum (the ticket design: stores it; the cluster design: stops
+  before the cluster exchange);
+- ``empty``: every block returns at once, on the same grid and launch.
 
 Prints one line per variant and round; needs a CUDA card.
 """
@@ -60,6 +82,163 @@ VARIANTS = {
     "stages2": _const("kStages", 3, 2),
     "warps4": _const("kWarps", 8, 4),
 }
+
+
+# ------------------------------------------------------------ int8 GEMV
+
+# Never true at run time (M <= 16): a part skipped behind it stays in the
+# binary, so the rest compiles as it does in the kernel.
+NEVER = "M > 1000"
+
+
+def _edit(src: str, old: str, new: str) -> str:
+    if src.count(old) != 1:
+        raise ValueError(f"ablation anchor found {src.count(old)} times in int8_gemv.cu, "
+                         f"not once: {old[:60]!r}")
+    return src.replace(old, new)
+
+
+# the ticket design: per-lane register loads, partials in global memory and
+# the last block of a column tile (an atomic ticket) reducing them
+TICKET = {
+    "empty": [
+        ("  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;\n",
+         "  if (M > 0) return;\n  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;\n"),
+        ("  const int warps = gridDim.x * kWarps;\n",
+         "  if (M > 0) return;\n  const int warps = gridDim.x * kWarps;\n"),
+    ],
+    "loads_only": [
+        ("  float acc[kN8][8][4];\n", "  float acc[kN8][8][4];\n  uint32_t sink = 0;\n"),
+        ("#pragma unroll\n    for (int u = 0; u < kU; ++u) {\n      const uint4 r0 = flip(",
+         "#pragma unroll\n    for (int u = 0; u < kU; ++u)\n#pragma unroll\n"
+         "      for (int j = 0; j < 4; ++j)\n"
+         "        sink ^= w[u][j].x ^ w[u][j].y ^ w[u][j].z ^ w[u][j].w ^ b[u][0][j & 1];\n"
+         "#pragma unroll\n    for (int u = 0; u < kU; ++u) {\n"
+         f"      if (!({NEVER})) continue;\n      const uint4 r0 = flip("),
+        ("  // tile t: mma row g",
+         f"  if (!({NEVER})) {{\n    if (sink == 0x9e3779b9u) static_cast<float*>(out)[0] = 1.f;\n"
+         "    return;\n  }\n  // tile t: mma row g"),
+        ("    float acc[4] = {0.f, 0.f, 0.f, 0.f};\n",
+         "    float acc[4] = {0.f, 0.f, 0.f, 0.f};\n    uint32_t sink = 0;\n"),
+        ("#pragma unroll\n      for (int u = 0; u < kU; ++u) {\n        const uint4 f = flip(w[u]);",
+         "#pragma unroll\n      for (int u = 0; u < kU; ++u)\n"
+         "        sink ^= w[u].x ^ w[u].y ^ w[u].z ^ w[u].w ^ x0[u][0].x ^ x0[u][1].y ^ x1[u][0].z"
+         " ^ x1[u][1].w;\n"
+         "#pragma unroll\n      for (int u = 0; u < kU; ++u) {\n"
+         f"        if (!({NEVER})) continue;\n        const uint4 f = flip(w[u]);"),
+        ("    const int c = tile * 8 + tid4 * 2;\n",
+         f"    if (!({NEVER})) {{\n      if (sink == 0x9e3779b9u) static_cast<float*>(out)[0] = 1.f;\n"
+         "      continue;\n    }\n    const int c = tile * 8 + tid4 * 2;\n"),
+    ],
+    "no_reduce": [
+        ("  if (n_ksplit == 1) return;\n  __threadfence();",
+         "  return;\n  __threadfence();"),
+    ],
+}
+
+# the cluster design: a TMA ring fed by a producer warp, split-K summed in
+# a thread-block cluster over distributed shared memory
+_HAND_BACK = ("    if (!({never})) {{\n      __syncwarp();\n"
+              "      if (lane == 0) mbar_arrive(smem_u32(&empty[slot]));\n      continue;\n    }}\n")
+CLUSTER = {
+    "empty": [
+        ("  using G = KN<kRows>;\n  constexpr",
+         "  if (M > 0) return;\n  using G = KN<kRows>;\n  constexpr"),
+        ("  using G = NK<kRows>;\n  extern",
+         "  if (M > 0) return;\n  using G = NK<kRows>;\n  extern"),
+    ],
+    "loads_only": [
+        ("      mbar_wait(smem_u32(&full[slot]), (j / kStages) & 1);\n",
+         "      mbar_wait(smem_u32(&full[slot]), (j / kStages) & 1);\n"
+         + "  " + _HAND_BACK.format(never=NEVER).replace("\n    ", "\n      ")),
+        ("    float* red = reinterpret_cast<float*>(smem);\n",
+         f"    float* red = reinterpret_cast<float*>(smem);\n    if ({NEVER}) {{\n"),
+        ("      st_cluster(smem_u32(inbox + rank * per + o - owner * per), owner, s);\n    }\n",
+         "      st_cluster(smem_u32(inbox + rank * per + o - owner * per), owner, s);\n    }\n"
+         "    }\n"),
+        ("  cluster_sync();\n  if (warp < kCons) {\n",
+         f"  cluster_sync();\n  if (warp < kCons && {NEVER}) {{\n"),
+        ("      mbar_wait(smem_u32(&full[slot]), (g / kStagesNK) & 1);\n",
+         "      mbar_wait(smem_u32(&full[slot]), (g / kStagesNK) & 1);\n"
+         + "  " + _HAND_BACK.format(never=NEVER).replace("\n    ", "\n      ")),
+        ("    float sum[4];\n", f"    if (!({NEVER})) continue;\n    float sum[4];\n"),
+    ],
+    "no_reduce": [
+        ("      st_cluster(", f"      if ({NEVER}) st_cluster("),
+        ("  cluster_sync();\n  if (warp < kCons) {\n",
+         f"  if ({NEVER}) cluster_sync();\n  if (warp < kCons && {NEVER}) {{\n"),
+    ],
+}
+
+GEMV_DESIGNS = {"g_tickets[": TICKET, "barrier.cluster": CLUSTER}
+
+
+def gemv_variant(src: str, name: str) -> str:
+    """``int8_gemv.cu`` with variant ``name``'s edits for its design."""
+    if name == "kernel":
+        return src
+    design = next((d for marker, d in GEMV_DESIGNS.items() if marker in src), None)
+    if design is None:
+        raise ValueError("int8_gemv.cu matches no known design")
+    for old, new in design[name]:
+        src = _edit(src, old, new)
+    return src
+
+
+GEMV_VARIANTS = ("kernel", "loads_only", "no_reduce", "empty")
+
+
+def gemv_main(argv) -> None:
+    import subprocess
+
+    import torch
+
+    from project_morpheus_tpu_torch.ops import build, int8_gemv as ig
+    from project_morpheus_tpu_torch.tools import time_kernels as tk
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ablation: needs a CUDA card")
+    names = argv or list(GEMV_VARIANTS)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    M = 8
+    ops = {}
+    for shape, (K, N, k_major, layers) in tk.gemv_shapes().items():
+        wshape = (layers, N, K) if k_major else (layers, K, N)
+        q = torch.randint(-127, 128, wshape, generator=g, device=dev, dtype=torch.int8)
+        sc = torch.rand(layers, N, generator=g, device=dev) * 0.02 + 1e-3
+        h0 = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+        ops[shape] = (q, sc, h0, h0.clone(), k_major, layers)
+    own_csrc, own_build, own_sources = build.CSRC, build.BUILD_DIR, build.SOURCES
+    try:
+        for rnd in range(2):
+            for name in names:
+                var_src = own_build / "ablation" / f"gemv_{name}" / "csrc"
+                if var_src.exists():
+                    shutil.rmtree(var_src)
+                shutil.copytree(own_csrc, var_src)
+                cu = var_src / ig.SOURCE
+                cu.write_text(gemv_variant(cu.read_text(), name))
+                build.CSRC, build.BUILD_DIR, build.SOURCES = var_src, var_src.parent, (ig.SOURCE,)
+                build._libs.clear()
+                build.build_all()
+                row = []
+                for shape, (q, sc, h0, h, k_major, layers) in ops.items():
+                    fn = lambda i: ig.int8_gemv(h, q[i % layers], sc[i % layers],  # noqa: E731
+                                                k_major=k_major)
+                    back = tk.graph_ms(fn)
+                    chain, link = tk.chained_ms(fn, tk.gemv_link(torch, h, h0))
+                    row.append(f"{shape} {back * 1e3:.2f} / {chain * 1e3:.2f} us (add {link * 1e3:.2f})")
+                print(f"round {rnd} gemv {name} [back-to-back / chained]: " + "; ".join(row),
+                      flush=True)
+    finally:
+        build.CSRC, build.BUILD_DIR, build.SOURCES = own_csrc, own_build, own_sources
+        build._libs.clear()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+
+
+# ------------------------------------------------------------ decode attention
 
 
 def main(names) -> None:
@@ -107,4 +286,7 @@ def main(names) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or list(VARIANTS))
+    if sys.argv[1:2] == ["gemv"]:
+        gemv_main(sys.argv[2:])
+    else:
+        main(sys.argv[1:] or list(VARIANTS))

@@ -19,7 +19,9 @@ G=3) and two sets of live lengths (``SHAPES``), times each kernel three ways:
 and, for the layered kernel, ``scaled_dot_product_attention`` on the same
 inputs as a yardstick (graph-timed the same way; the port never calls it).
 ``main`` also splits each call's device time by CUDA kernel (split pass,
-merge) with the torch profiler.  Prints one JSON line.  ``chip_smoke.py`` phase 2 times with these functions.
+merge) with the torch profiler.  Prints one JSON line.  ``chip_smoke.py``
+phase 2 times with these functions, the int8 GEMV with ``chained_ms`` (a
+dependent add between calls) at ``gemv_shapes``.
 It needs a CUDA card and fails without one.
 """
 from __future__ import annotations
@@ -62,6 +64,25 @@ def graph_ms(fn, calls: int = GRAPH_CALLS, replays: int = REPLAYS) -> float:
     end.synchronize()
     del graph
     return start.elapsed_time(end) / (calls * replays)
+
+
+def chained_ms(fn, link, calls: int = GRAPH_CALLS, replays: int = REPLAYS):
+    """Device ms per ``fn(i)`` with a small dependent op between calls, as
+    in serving, where a norm or an add sits between two projections: a graph
+    of ``link(y)``, ``y = fn(i)`` pairs (``link`` takes the previous call's
+    output) less a graph of the links alone.  A kernel launched to start
+    before its predecessor ends then overlaps the link's tail, as in
+    serving, and not the previous call.  Returns (ms per call, ms per link).
+    """
+    last = [fn(0)]
+
+    def pair(i):
+        link(last[0])
+        last[0] = fn(i)
+
+    both = graph_ms(pair, calls, replays)
+    alone = graph_ms(lambda i: link(last[0]), calls, replays)
+    return both - alone, alone
 
 
 def host_us(fn, calls: int = GRAPH_CALLS) -> float:
@@ -116,6 +137,27 @@ def kernel_us(fn, calls: int = GRAPH_CALLS) -> dict:
             name = re.split(r"[<(]", name)[0]
             out[name] = out.get(name, 0.0) + us / calls
     return out
+
+
+def gemv_shapes() -> dict:
+    """The int8 GEMV's weights in one Orpheus-3B decode step:
+    name -> (K, N, k_major, layers)."""
+    from ..model import LlamaConfig
+
+    c = LlamaConfig.orpheus_3b()
+    D, L, HD = c.hidden_size, c.num_layers, c.head_dim
+    return {"wqkv": (D, (c.num_heads + 2 * c.num_kv_heads) * HD, False, L),
+            "wo": (c.num_heads * HD, D, False, L),
+            "wgu": (D, 2 * c.intermediate_size, False, L),
+            "wd": (c.intermediate_size, D, False, L),
+            "lm_head": (D, c.padded_vocab, True, 1)}
+
+
+def gemv_link(torch, h, h0):
+    """The dependent op between two timed GEMV calls: ``h = h0 + y[:, :1]``,
+    an M x K add that reads the previous output and writes the next input
+    (a residual add's size)."""
+    return lambda y: torch.add(h0, y[:, :1], out=h)
 
 
 def timings(fn) -> dict:

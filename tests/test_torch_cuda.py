@@ -60,12 +60,19 @@ def test_cuda_kernels_match_twins(cuda, HD, G):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("M", [1, 8, 13])
+@pytest.mark.parametrize("M", [1, 8, 13, 16])
 @pytest.mark.parametrize("k_major,K,N", [(False, 256, 1280), (False, 8192, 3072),
-                                         (True, 3072, 1000), (True, 256, 4096)])
+                                         (False, 3072, 3072), (False, 336, 1040),
+                                         (False, 2048, 1024), (False, 256, 16384),
+                                         (True, 3072, 1000), (True, 256, 4096),
+                                         (True, 400, 1000)])
 def test_int8_gemv_matches_twin(cuda, M, k_major, K, N):
-    """The GEMV in both layouts, with a K split ((K, N) at 8192 x 3072) and
-    a ragged last row tile ((N, K) at N = 1000), against its twin."""
+    """The GEMV in both layouts against its twin: (K, N) with clusters of
+    1 (256 x 16384), 2, 4 (8192 x 3072, and the wo shape 3072 x 3072) and
+    8 blocks (2048 x 1024) on a 132-SM card, a ragged last column tile and
+    a K that is not a whole number of 128-row stages (336 x 1040); (N, K)
+    with a ragged last row tile (N = 1000) and a K that is not a whole
+    number of 64-wide h boxes (400)."""
     g = torch.Generator(device=cuda).manual_seed(M + K)
     h = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
     shape = (N, K) if k_major else (K, N)
@@ -79,6 +86,37 @@ def test_int8_gemv_matches_twin(cuda, M, k_major, K, N):
     assert got.dtype == (torch.float32 if k_major else torch.bfloat16) and got.shape == (M, N)
     err = (got.float() - want.float()).abs()
     assert torch.all(err <= 2**-6 * want.float().abs() + 1e-3), err.max()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("k_major,K,N", [(False, 3072, 3072), (False, 3072, 16384),
+                                         (True, 3072, 4000)])
+def test_int8_gemv_same_bits_eager_and_replayed(cuda, k_major, K, N):
+    """The same call gives the same bits eagerly, again, and replayed from
+    a captured CUDA graph: the K split is summed in a fixed order."""
+    g = torch.Generator(device=cuda).manual_seed(K + N)
+    h = torch.randn(8, K, generator=g, device=cuda).to(torch.bfloat16)
+    shape = (N, K) if k_major else (K, N)
+    q = torch.randint(-127, 128, shape, generator=g, device=cuda, dtype=torch.int8)
+    scale = torch.rand(N, generator=g, device=cuda) * 0.02 + 1e-3
+    first = ig.int8_gemv(h, q, scale, k_major=k_major)
+    again = ig.int8_gemv(h, q, scale, k_major=k_major)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ig.int8_gemv(h, q, scale, k_major=k_major)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ig.int8_gemv(h, q, scale, k_major=k_major)
+    replays = []
+    for _ in range(3):
+        graph.replay()
+        replays.append(captured.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    for r in replays:
+        assert torch.equal(first, r)
 
 
 @pytest.mark.requires_cuda

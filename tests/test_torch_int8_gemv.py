@@ -54,11 +54,25 @@ def test_tied_lm_head_twin_matches_jax(M):
     np.testing.assert_array_equal(via.numpy(), got.numpy())
 
 
-def test_k_splits_cover_the_grid():
-    """The (K, N) launch splits K so that the 3B shapes fill at most 132
-    blocks (one a SM) to within one split, every warp with at least one k16
-    step."""
-    for K, N in ((3072, 5120), (3072, 3072), (3072, 16384), (8192, 3072)):
-        s, tiles = ig.k_splits(K, N), -(-N // 128)
-        assert 1 <= s <= K // 16 // 8
-        assert 132 - tiles < s * tiles <= 132
+@pytest.mark.parametrize("sms", [114, 132])
+@pytest.mark.parametrize("K,N", [(3072, 5120), (3072, 3072), (3072, 16384), (8192, 3072),
+                                 (256, 1280), (8192, 40960)])
+def test_k_splits_cover_the_grid(K, N, sms):
+    """The (K, N) launch splits K over a cluster of 1, 2, 4 or 8 blocks:
+    the largest whose grid has at most one block for each of the card's
+    SMs (114 on the PCIe H100, 132 on the SXM), every block with at least
+    one 128-row stage of K."""
+    s, tiles, stages = ig.k_splits(K, N, sms), -(-N // 128), -(-K // 128)
+    assert s in (1, 2, 4, 8) and s <= stages
+    assert s == 1 or tiles * s <= sms
+    assert s == 8 or 2 * s > stages or tiles * 2 * s > sms
+
+
+@pytest.mark.parametrize("sms", [114, 132])
+@pytest.mark.parametrize("N", [1, 64, 1000, 157184])
+def test_nk_blocks_cover_the_table(N, sms):
+    """The (N, K) launch runs one persistent block a SM, never more blocks
+    than 64-row tiles of the table."""
+    b = ig.nk_blocks(N, sms)
+    assert 1 <= b <= sms and b <= -(-N // 64)
+    assert b == sms or b == -(-N // 64)
