@@ -39,10 +39,27 @@ Phases, each raising on failure (exit code 1, no result lines):
 6. answer one ``POST /v1/audio/speech`` from the port's server on
    localhost with a RIFF WAV, with the 3B runtime switched to the server's
    ``attn_impl="auto"`` and warmed up for it: the short context's frames
-   must replay the CUDA graphs of the dense int8 attention branch.
+   must replay the CUDA graphs of the dense int8 attention branch;
+7. checkpoint serving: write a full-width 28-layer bf16 Orpheus-3B HF
+   release directory (``config.json`` with the published key names and
+   llama3 rope scaling, two safetensors shards and their index, a
+   byte-level BPE ``tokenizer.json`` with Orpheus's added tokens) and a
+   SNAC ``.npz`` with this script's own writers; build ``ServingRuntime``
+   from ``ORPHEUS_CHECKPOINT_PATH``, ``ORPHEUS_TOKENIZER_PATH`` and
+   ``ORPHEUS_SNAC_PATH`` (int8 weights, int8 KV cache): every loaded leaf
+   must equal the written params bit for bit, and the config
+   ``orpheus_3b()`` in every field the model reads; four seeded requests
+   must give the same tokens and PCM as a runtime given the params
+   directly; then the server on the loaded runtime (speech, ``/ws/tts``,
+   ``/config``, ``/barge-in``, ``/adapters``, ``/sources``), and
+   ``remote_sse`` against a local SSE stub replaying a served trace, whose
+   PCM must equal the exact stream decoder's.  Prints the seconds to write
+   and to load the files, the host's peak RSS during the load, and the
+   TTFA of the first HTTP request on the loaded weights.
 
 Kernel launch counts are zeroed just before the first run of phase 4 (the
-main path) and just before phase 5 and read just after each; launches inside replayed
+main path), just before phase 5 and just before phase 7's first seeded
+load, and read just after each; launches inside replayed
 CUDA graphs are counted through each graph's tally.  The last lines are the
 GEMV's device ms a frame in the k=1 serving load, the card's name and power
 limit, one JSON line describing every kernel, and
@@ -53,11 +70,17 @@ from __future__ import annotations
 
 import asyncio
 import json
+import math
 import os
+import shutil
+import struct
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import traceback
+from pathlib import Path
 
 H100_BYTES_PER_S = 3.35e12   # H100 SXM data sheet: HBM3 bandwidth
 H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak
@@ -652,6 +675,461 @@ async def serving_phases(card: str, records) -> str:
     return gemv_line
 
 
+# ------------------------------------------------------------ phase 7
+#
+# This script's own writers of an HF release directory: independent of the
+# port's reader (model/hf_weights.py), which phase 7 and the tests check
+# against them.
+
+ST_DTYPES = {"torch.bfloat16": "BF16", "torch.float16": "F16", "torch.float32": "F32"}
+HF_LAYER_NAMES = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj", "wv": "self_attn.v_proj",
+                  "wo": "self_attn.o_proj", "wg": "mlp.gate_proj", "wu": "mlp.up_proj",
+                  "wd": "mlp.down_proj", "ln1": "input_layernorm",
+                  "ln2": "post_attention_layernorm"}
+# the pre-tokenizer split of the Llama-3 tokenizer.json
+LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}|"
+                r" ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+TOKENIZER_MERGES = [("Ġ", "t"), ("h", "e"), ("Ġt", "he"), ("i", "n"), ("Ġ", "a"), ("e", "r"),
+                    ("o", "n"), ("Ġ", "s"), ("r", "e"), ("a", "t"), ("e", "n"), ("o", "r"),
+                    ("Ġ", "w"), ("e", "s"), ("l", "l"), ("Ġ", "c"), ("i", "s"), ("o", "u")]
+
+
+def hf_config_dict(cfg) -> dict:
+    """``config.json`` of an Orpheus-3B release (``canopylabs/orpheus-3b-0.1-ft``'s
+    key names) for the widths of ``cfg``."""
+    return {
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "attention_bias": False, "attention_dropout": 0.0, "mlp_bias": False,
+        "bos_token_id": 128000, "eos_token_id": 128009, "hidden_act": "silu",
+        "hidden_size": cfg.hidden_size, "intermediate_size": cfg.intermediate_size,
+        "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+        "max_position_embeddings": 131072, "initializer_range": 0.02, "pretraining_tp": 1,
+        "rms_norm_eps": cfg.rms_eps, "rope_theta": cfg.rope_theta,
+        "rope_scaling": {"rope_type": "llama3", "factor": cfg.rope_scaling_factor,
+                         "low_freq_factor": cfg.rope_low_freq_factor,
+                         "high_freq_factor": cfg.rope_high_freq_factor,
+                         "original_max_position_embeddings": cfg.rope_original_max_pos},
+        "tie_word_embeddings": cfg.tie_embeddings, "torch_dtype": "bfloat16",
+        "use_cache": True, "vocab_size": cfg.vocab_size,
+    }
+
+
+def hf_tensors(params, cfg):
+    """(name, tensor) of ``params`` in an HF Llama release's names and
+    ``(out, in)`` layout, vocab padding dropped."""
+    yield "model.embed_tokens.weight", params["embed"][:cfg.vocab_size]
+    for i in range(cfg.num_layers):
+        for key, name in HF_LAYER_NAMES.items():
+            w = params["layers"][key][i]
+            yield f"model.layers.{i}.{name}.weight", w.T if w.ndim == 2 else w
+    yield "model.norm.weight", params["ln_f"]
+    if "lm_head" in params:
+        yield "lm_head.weight", params["lm_head"][:, :cfg.vocab_size].T
+
+
+def write_safetensors(path, tensors) -> int:
+    """One safetensors file from ``[(name, tensor)]`` (any device): the
+    8-byte little-endian header length, the JSON header padded to 8 bytes,
+    then each tensor's bytes in order, one tensor on the host at a time;
+    then ``fsync`` and ``posix_fadvise(DONTNEED)``, which asks the kernel to
+    drop the file from the page cache (a filesystem may not honour it).
+    Returns the file's size."""
+    import torch
+
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors:
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": ST_DTYPES[str(t.dtype)], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for _, t in tensors:
+            f.write(t.contiguous().cpu().reshape(-1).view(torch.uint8).numpy())
+        f.flush()
+        os.fsync(f.fileno())
+        os.posix_fadvise(f.fileno(), 0, 0, os.POSIX_FADV_DONTNEED)
+    return 8 + len(raw) + offset
+
+
+def write_hf_checkpoint(directory, params, cfg, shards: int = 2) -> int:
+    """``config.json``, ``shards`` safetensors files and their index;
+    returns the bytes written."""
+    directory = Path(directory)
+    tensors = list(hf_tensors(params, cfg))
+    per = math.ceil(len(tensors) / shards)
+    weight_map, total = {}, 0
+    for s in range(shards):
+        fname = f"model-{s + 1:05d}-of-{shards:05d}.safetensors"
+        part = tensors[s * per:(s + 1) * per]
+        total += write_safetensors(directory / fname, part)
+        weight_map.update({name: fname for name, _ in part})
+    size = sum(t.numel() * t.element_size() for _, t in tensors)
+    (directory / "model.safetensors.index.json").write_text(
+        json.dumps({"metadata": {"total_size": size}, "weight_map": weight_map}))
+    (directory / "config.json").write_text(json.dumps(hf_config_dict(cfg), indent=2))
+    return total
+
+
+def _byte_chars():
+    """GPT-2's byte -> printable character map (byte-level BPE)."""
+    bs = (list(range(ord("!"), ord("~") + 1)) + list(range(ord("¡"), ord("¬") + 1))
+          + list(range(ord("®"), ord("ÿ") + 1)))
+    cs, n = bs[:], 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return dict(zip(bs, map(chr, cs)))
+
+
+def write_tokenizer(directory, vocab_size: int) -> None:
+    """A byte-level BPE ``tokenizer.json`` in the Llama-3 layout: the 256
+    byte symbols, a few merges, filler entries up to id 128,000 that no
+    text reaches, then Orpheus's added tokens (Llama-3's 256 special ids,
+    ``<|eot_id|>`` at 128,009, and ``<custom_token_N>`` at 128,256 + N up
+    to ``vocab_size``)."""
+    chars = _byte_chars()
+    vocab = {chars[b]: b for b in range(256)}
+    for a, b in TOKENIZER_MERGES:
+        vocab[a + b] = len(vocab)
+    while len(vocab) < 128000:
+        vocab[f"一filler{len(vocab)}"] = len(vocab)
+    names = {128000: "<|begin_of_text|>", 128001: "<|end_of_text|>", 128009: "<|eot_id|>"}
+    added = [{"id": i, "content": names.get(i, f"<|reserved_special_token_{i - 128002}|>"),
+              "single_word": False, "lstrip": False, "rstrip": False, "normalized": False,
+              "special": True} for i in range(128000, 128256)]
+    added += [{"id": 128256 + n, "content": f"<custom_token_{n}>", "single_word": False,
+               "lstrip": False, "rstrip": False, "normalized": False, "special": True}
+              for n in range(vocab_size - 128256)]
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT}, "behavior": "Isolated",
+             "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+             "use_regex": False}]},
+        "post_processor": None,
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                    "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": False, "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": [list(m) for m in TOKENIZER_MERGES]},
+    }
+    Path(directory, "tokenizer.json").write_text(json.dumps(spec))
+    Path(directory, "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": "PreTrainedTokenizerFast", "clean_up_tokenization_spaces": True}))
+
+
+class PeakRss:
+    """Samples the process's resident set every 5 ms while the block runs;
+    ``peak`` and ``start`` in bytes."""
+
+    def __init__(self) -> None:
+        self.start = self.peak = self._read()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    @staticmethod
+    def _read() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, self._read())
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.peak = max(self.peak, self._read())
+
+
+CKPT_PROMPTS = ("Loaded weights speak first.", "Hello there, how are you today?",
+                "A short sentence.", "Streaming speech from a checkpoint.")
+
+
+def check_loaded_params(torch, loaded, mem, lcfg, cfg) -> int:
+    """Every loaded leaf equals the written params bit for bit; the config
+    equals ``cfg`` in every field the model reads.  Returns leaves checked."""
+    fields = [f for f in cfg.__dataclass_fields__ if f not in ("max_seq_len", "dtype")]
+    bad = [f for f in fields if getattr(lcfg, f) != getattr(cfg, f)]
+    if bad or lcfg.max_seq_len != 131072:
+        raise AssertionError(f"loaded config differs in {bad} (max_seq_len {lcfg.max_seq_len})")
+    pairs = [("embed", loaded["embed"], mem["embed"]), ("ln_f", loaded["ln_f"], mem["ln_f"])]
+    pairs += [(k, loaded["layers"][k], v) for k, v in mem["layers"].items()]
+    if set(loaded) != set(mem) or set(loaded["layers"]) != set(mem["layers"]):
+        raise AssertionError(f"loaded leaves {sorted(loaded)} vs {sorted(mem)}")
+    for name, a, b in pairs:
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(
+                a.view(torch.int16), b.view(torch.int16)):
+            raise AssertionError(f"loaded leaf {name} differs from the written params")
+    return len(pairs)
+
+
+def trace_codes(trace):
+    """Audio codes of a token trace, as the remote path keeps them (code > 0)."""
+    from project_morpheus_tpu_torch.adapters.runtime import audio_code_from_token_id
+
+    codes, pos = [], 0
+    for t in trace:
+        c = audio_code_from_token_id(t, pos)
+        if c is not None:
+            pos += 1
+            codes.append(c)
+    return [c for c in codes if c > 0]
+
+
+async def sse_stub(codes):
+    """A local OpenAI-style completions endpoint streaming ``codes`` as
+    ``<custom_token_N>`` SSE events, two tokens an event; returns
+    (runner, url)."""
+    from aiohttp import web
+
+    from project_morpheus_tpu_torch.codec.frames import custom_number_from_audio_code
+
+    toks = [f"<custom_token_{custom_number_from_audio_code(c, i)}>" for i, c in enumerate(codes)]
+
+    async def completions(request):
+        body = await request.json()
+        if body.get("stream") is not True:
+            raise web.HTTPBadRequest(text="stream must be true")
+        resp = web.StreamResponse(headers={"Content-Type": "text/event-stream"})
+        await resp.prepare(request)
+        for i in range(0, len(toks), 2):
+            event = {"choices": [{"text": "".join(toks[i:i + 2])}]}
+            await resp.write(f"data: {json.dumps(event)}\n\n".encode())
+        await resp.write(b"data: [DONE]\n\n")
+        await resp.write_eof()
+        return resp
+
+    app = web.Application()
+    app.router.add_post("/v1/completions", completions)
+    runner = web.AppRunner(app)
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    return runner, f"http://127.0.0.1:{site._server.sockets[0].getsockname()[1]}/v1/completions"
+
+
+async def phase_checkpoint_server(card, np, fs, workdir):
+    """The server on the loaded runtime: speech (TTFA of the first
+    request), ``/ws/tts``, ``/config``, ``/barge-in``, ``/adapters``,
+    ``/sources``.  Config writes land in ``workdir``."""
+    import aiohttp
+    from aiohttp import web
+
+    from project_morpheus_tpu_torch import config as config_mod
+    from project_morpheus_tpu_torch.server.app import create_app
+
+    config_mod.HOME_CONFIG = Path(workdir, "home_config")
+    runner = web.AppRunner(create_app(generation={"max_tokens": HTTP_TOKENS}))
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    base = f"http://127.0.0.1:{site._server.sockets[0].getsockname()[1]}"
+    try:
+        async with aiohttp.ClientSession() as s:
+            t0 = time.perf_counter()
+            ttfa, body = None, bytearray()
+            async with s.post(f"{base}/v1/audio/speech",
+                              json={"input": "Loaded from a checkpoint.", "voice": "tara"}) as r:
+                status, ctype = r.status, r.headers.get("Content-Type")
+                async for chunk in r.content.iter_any():
+                    body += chunk
+                    if ttfa is None and len(body) > 44:
+                        ttfa = time.perf_counter() - t0
+            if status != 200 or ctype != "audio/wav" or body[:4] != b"RIFF":
+                raise AssertionError(f"speech on loaded weights: {status} {ctype} {bytes(body[:12])!r}")
+            check_pcm(np, bytes(body[44:]), HTTP_TOKENS // 7, 2 * fs, "HTTP speech, loaded weights")
+            async with s.ws_connect(f"{base}/ws/tts") as ws:
+                await ws.send_str(json.dumps({"input": "Over the websocket."}))
+                pcm, eos = bytearray(), None
+                async for msg in ws:
+                    if msg.type == aiohttp.WSMsgType.BINARY:
+                        pcm += msg.data
+                    else:
+                        eos = json.loads(msg.data)
+                        break
+            if eos != {"eos": True}:
+                raise AssertionError(f"/ws/tts ended with {eos}")
+            check_pcm(np, bytes(pcm), HTTP_TOKENS // 7, 2 * fs, "/ws/tts, loaded weights")
+            async with s.post(f"{base}/config", json={"temperature": 0.7}) as r:
+                posted = (r.status, await r.json())
+            async with s.get(f"{base}/config") as r:
+                got = await r.json()
+            async with s.post(f"{base}/barge-in") as r:
+                barge = await r.json()
+            async with s.get(f"{base}/adapters") as r:
+                adapters = await r.json()
+            async with s.get(f"{base}/sources") as r:
+                sources = await r.json()
+    finally:
+        await runner.cleanup()
+    if posted[0] != 200 or got.get("TEMPERATURE") != "0.7" or got.get("ORPHEUS_TEMPERATURE") != "0.7":
+        raise AssertionError(f"/config: POST {posted}, GET temperature {got.get('TEMPERATURE')}")
+    if barge != {"ok": True} or set(adapters) != {"local_torch", "remote_sse"} or \
+            set(sources) != {"websocket", "http_poll", "cli_pipe"}:
+        raise AssertionError(f"/barge-in {barge}, /adapters {sorted(adapters)}, "
+                             f"/sources {sorted(sources)}")
+    log(f"http on loaded weights: TTFA {ttfa:.3f} s (first request), {len(body) - 44} PCM bytes; "
+        f"/ws/tts {len(pcm)} PCM bytes then eos; /config temperature 0.7 applied; /barge-in, "
+        f"/adapters, /sources answered [{card}]")
+    return ttfa
+
+
+async def phase_checkpoint(card: str, records) -> None:
+    """Phase 7 (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from project_morpheus_tpu_torch.adapters import remote_backend as rb
+    from project_morpheus_tpu_torch.adapters import runtime as rt
+    from project_morpheus_tpu_torch.codec.snac_config import SNACConfig
+    from project_morpheus_tpu_torch.codec.stream_decode import ExactStreamDecoder
+    from project_morpheus_tpu_torch.codec.weights import random_torch_state
+    from project_morpheus_tpu_torch.model import LlamaConfig
+    from project_morpheus_tpu_torch.model.llama import init_llama_params
+    from project_morpheus_tpu_torch.model.tokenizer import BPETokenizer, format_prompt_ids
+    from project_morpheus_tpu_torch.ops import decode_attention as da
+    from project_morpheus_tpu_torch.ops import int8_gemv as ig
+
+    rt.set_runtime(None)  # drop phase 4's 3B runtime
+    torch.cuda.empty_cache()
+    cfg = LlamaConfig.orpheus_3b()
+    workdir = tempfile.mkdtemp(prefix="orpheus_ckpt_")
+    cwd = os.getcwd()
+    try:
+        free = shutil.disk_usage(workdir).free
+        if free < 10e9:
+            raise AssertionError(f"{free / 1e9:.1f} GB free under {workdir}; the files need ~6.6 GB")
+        ckpt, snac_path = Path(workdir, "orpheus-3b"), Path(workdir, "snac_24khz.npz")
+        ckpt.mkdir()
+        t0 = time.perf_counter()
+        mem = init_llama_params(cfg, 11, "cuda", torch.bfloat16)
+        mem["embed"][cfg.vocab_size:] = 0  # a release has no padded rows
+        nbytes = write_hf_checkpoint(ckpt, mem, cfg)
+        write_tokenizer(ckpt, cfg.vocab_size)
+        np.savez(snac_path, **random_torch_state(SNACConfig.snac_24khz(), 5))
+        write_s = time.perf_counter() - t0
+        log(f"checkpoint: wrote {nbytes / 1e9:.3f} GB of bf16 safetensors (2 shards + index, "
+            f"flushed to the disk), tokenizer.json and a SNAC .npz in {write_s:.2f} s "
+            f"({free / 1e9:.0f} GB were free)")
+        tok = BPETokenizer(ckpt)
+        text = "tara: Hello there, the weather is nice."
+        ids = tok.encode(text + "<custom_token_5><|eot_id|>")
+        if ids[-2:] != [128261, 128009] or tok.decode(tok.encode(text)) != text:
+            raise AssertionError(f"tokenizer.json round trip: {ids[-4:]}")
+
+        os.environ.update(ORPHEUS_CHECKPOINT_PATH=str(ckpt), ORPHEUS_SNAC_PATH=str(snac_path),
+                          ORPHEUS_TOKENIZER_PATH=str(ckpt), ORPHEUS_QUANT="int8",
+                          ORPHEUS_KV_QUANT="int8", ORPHEUS_MODEL_SIZE="3b",
+                          ORPHEUS_MAX_SEQ="8192", ORPHEUS_MAX_SLOTS="8")
+        kw = dict(device="cuda", attn_impl="kernel", banded_sampling=True)
+        loaded_rt = rt.ServingRuntime(**kw)
+        torch.cuda.synchronize()
+        with PeakRss() as rss:
+            t0 = time.perf_counter()
+            loaded, lcfg = loaded_rt.load_params()
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        gib = 2.0**30
+        shard = max(f.stat().st_size for f in ckpt.glob("*.safetensors"))
+        log(f"checkpoint: loaded onto the card in {load_s:.2f} s ({nbytes / 1e9 / load_s:.2f} "
+            f"GB/s; each shard fsynced and fadvised DONTNEED after writing); host RSS "
+            f"{rss.start / gib:.2f} GiB before, peak {rss.peak / gib:.2f} GiB during the load "
+            f"(+{(rss.peak - rss.start) / gib:.2f} GiB; largest shard {shard / gib:.2f} GiB) [{card}]")
+        n = check_loaded_params(torch, loaded, mem, lcfg, cfg)
+        log(f"checkpoint: {n} loaded leaves equal the written params bit for bit; config equals "
+            f"orpheus_3b() in every field the model reads (max_position_embeddings 131072 read, "
+            f"cache sized by ORPHEUS_MAX_SEQ)")
+        t0 = time.perf_counter()
+        loaded_rt.build((loaded, lcfg))
+        torch.cuda.synchronize()
+        log(f"checkpoint: runtime built on the loaded params (int8 quantization, engine, SNAC "
+            f".npz) in {time.perf_counter() - t0:.2f} s [{card}]")
+        direct_rt = rt.ServingRuntime(**kw)
+        direct_rt.build((mem, cfg))
+        del loaded, mem
+        torch.cuda.empty_cache()
+        if loaded_rt.engine.cache["k"].shape[2] != 8192:
+            raise AssertionError(f"KV cache of {loaded_rt.engine.cache['k'].shape[2]} positions")
+
+        seeds = [300 + i for i in range(len(CKPT_PROMPTS))]
+        fs = loaded_rt.snac_cfg.frame_samples
+        results = {}
+        for name, runtime in (("loaded", loaded_rt), ("direct", direct_rt)):
+            rt.set_runtime(runtime)
+            if name == "loaded":
+                da.reset_launch_counts()
+                ig.reset_launch_counts()
+            t0 = time.perf_counter()
+            out, wall, traces = await serve(list(CKPT_PROMPTS), 7 * 24, seeds)
+            torch.cuda.synchronize()
+            if name == "loaded":
+                launches = {**da.LAUNCHES, **ig.LAUNCHES}
+            results[name] = (out, traces)
+            for i, (pcm, _) in enumerate(out):
+                check_pcm(np, pcm, 24, 2 * fs, f"{name} request {i}")
+            log(f"checkpoint: 4 seeded requests from the {name} runtime in {wall:.2f} s, TTFA "
+                f"{' / '.join(f'{t:.3f}' for _, t in out)} s (graphs captured on first use) [{card}]")
+        for kname in ("decode_attention_int8_slots", "int8_gemv"):
+            if launches[kname] <= 0:
+                raise AssertionError(f"serving loaded weights never launched {kname}: {launches}")
+        records[0]["checkpoint_launches"] = launches["decode_attention_int8_slots"]
+        records[2]["checkpoint_launches"] = launches["int8_gemv"]
+        (lo, lt), (do, dt) = results["loaded"], results["direct"]
+        if lt != dt or any(len(t) == 0 for t in lt):
+            raise AssertionError("token traces differ between loaded and direct params")
+        if any(a[0] != b[0] for a, b in zip(lo, do)):
+            raise AssertionError("PCM differs between loaded and direct params")
+        log(f"checkpoint: traces identical ({sum(map(len, lt))} tokens) and PCM bit-identical, "
+            f"loaded vs direct; launches {launches}")
+        if format_prompt_ids(CKPT_PROMPTS[0], "tara") != format_prompt_ids(
+                CKPT_PROMPTS[0], "tara", tok):
+            raise AssertionError("the served prompts were not tokenized by tokenizer.json")
+        await direct_rt.engine.close()
+
+        rt.set_runtime(loaded_rt)
+        os.chdir(workdir)  # POST /config writes .env here
+        ttfa = await phase_checkpoint_server(card, np, fs, workdir)
+
+        codes = trace_codes(lt[0])
+        runner, url = await sse_stub(codes)
+        try:
+            os.environ["ORPHEUS_API_URL"] = url
+            got = bytearray()
+            async for pcm in rb.stream_pcm_from_api("replayed", decoder_mode="exact"):
+                got += pcm
+        finally:
+            await runner.cleanup()
+        dec = ExactStreamDecoder(loaded_rt.snac_params, loaded_rt.snac_cfg)
+        want = b"".join(h.tobytes() for h in dec.push_tokens(codes) + dec.flush())
+        if not got or bytes(got) != want:
+            raise AssertionError(f"remote_sse PCM ({len(got)} bytes) != exact decoder ({len(want)})")
+        log(f"remote_sse: {len(codes)} codes over a local SSE stub -> {len(got)} PCM bytes, equal "
+            f"to the exact stream decoder's on the card [{card}]")
+        await loaded_rt.engine.close()
+        log(f"checkpoint serving summary: write {write_s:.2f} s, load {load_s:.2f} s "
+            f"({nbytes / 1e9 / load_s:.2f} GB/s), host peak RSS {rss.peak / 2**30:.2f} GiB, TTFA "
+            f"{ttfa:.3f} s on loaded weights [{card}]")
+    finally:
+        os.chdir(cwd)
+        rt.set_runtime(None)
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def run(card: str) -> None:
     import torch
 
@@ -675,6 +1153,7 @@ def run(card: str) -> None:
     phase_graphs(torch, dev)
 
     gemv_line = asyncio.run(serving_phases(card, records))
+    asyncio.run(phase_checkpoint(card, records))
 
     print(gemv_line)
     print(card)

@@ -9,13 +9,22 @@ of it.
 
 Layer map (mirrors the JAX package):
 
-    server/        aiohttp HTTP API (speech, voices, stats)
-    adapters/      ServingRuntime + LocalTorchAdapter (pull protocol)
+    server/        aiohttp HTTP/WS API (speech, voices, /ws/tts, adapters,
+                   sources, config, barge-in, stats, admin page)
+    compat/        OrpheusModel: the orpheus_tts package's synchronous API
+    text_sources/  push-mode text inputs (websocket, HTTP poll, CLI pipe)
+    adapters/      ServingRuntime (random weights or an HF checkpoint),
+                   LocalTorchAdapter, the remote SSE adapter, MockEngine
     orchestrator/  pull loop, chunk ladder, playback/ring buffers, stitcher
     engine/        continuous-batching engine over a slot-table KV cache
-    model/         Llama-3.2-class decoder, int8 weights, sampling
-    ops/           hand-written Hopper CUDA kernels (flash decode attention)
-    codec/         SNAC decoder and the exact stateful stream decoder
+    model/         Llama-3.2-class decoder, HF checkpoint loader, byte-level
+                   BPE tokenizer, int8 weights, sampling
+    ops/           hand-written Hopper CUDA kernels (flash decode attention,
+                   int8 GEMV)
+    codec/         SNAC decoder, the exact stream decoder, and the windowed
+                   and parity stream decoders
+    tools/         convert_snac, kernel timing and ablation, profiling
+    config.py      layered env-file configuration
     utils/         device selection, text splitting, WAV helpers
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

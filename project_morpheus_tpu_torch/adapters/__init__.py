@@ -1,4 +1,6 @@
-"""TTS adapter registry and the in-process backend (``local_torch``)."""
+"""TTS adapter registry and backends: ``local_torch`` (the in-process
+engine) and ``remote_sse`` (OpenAI-compatible SSE token stream, decoded
+here by the exact SNAC stream decoder)."""
 
 from .registry import AdapterRegistry, VoiceSchema, registry
 

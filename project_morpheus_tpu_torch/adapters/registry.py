@@ -1,5 +1,5 @@
 """Adapter registry: name -> (constructor, capability descriptor, voice map)
-(port of adapters/registry.py; the in-process adapter only).
+(port of adapters/registry.py).
 
 Functional parity with reference tts_engine/adapter_registry.py:22-107.
 The descriptor schema is the stable surface the admin UI and /adapters
@@ -85,13 +85,28 @@ def _local_describe() -> Dict[str, Any]:
     }
 
 
+def _remote_describe() -> Dict[str, Any]:
+    return {
+        "name": "remote_sse",
+        "streaming": True,
+        "unit": "bytes",
+        "granularity": list(DEFAULT_LADDER),
+        "voices": AVAILABLE_VOICES,
+        "supports_barge_in": True,
+        "supports_seed": False,
+        "stateful_context": "none",
+    }
+
+
 registry = AdapterRegistry()
 
 
 def _register_bundled() -> None:
     from .local_torch import LocalTorchAdapter
+    from .remote_backend import RemoteSSEAdapter
 
     registry.register("local_torch", LocalTorchAdapter, _local_describe)
+    registry.register("remote_sse", RemoteSSEAdapter, _remote_describe)
 
 
 _register_bundled()

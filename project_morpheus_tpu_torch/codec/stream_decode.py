@@ -242,7 +242,20 @@ class ExactStreamDecoder:
 
 
 def make_stream_decoder(params, cfg: Optional[SNACConfig] = None, mode: str = "exact"):
-    """Per-stream decoder; the port carries the exact (``native``) mode only."""
+    """Per-stream decoder by mode.
+
+    - ``"exact"`` / ``"native"`` (default): ExactStreamDecoder, identical
+      PCM to the engine's batched audio path for the same token trace.
+    - ``"windowed"``: the windowed recompute decoder (A/B comparisons).
+    - ``"parity"``: the reference-quirk-exact windowed decoder (golden
+      traces vs speechpipe.py:191-293).
+    """
     if mode in ("exact", "native"):
         return ExactStreamDecoder(params, cfg)
-    raise ValueError(f"decoder mode {mode!r} is not ported (exact/native only)")
+    from .streaming import StreamingSnacDecoder
+
+    if mode == "windowed":
+        return StreamingSnacDecoder(params, cfg, mode="native")
+    if mode == "parity":
+        return StreamingSnacDecoder(params, cfg, mode="parity")
+    raise ValueError(f"unknown decoder mode {mode!r}")

@@ -1,11 +1,18 @@
-"""HTTP API server (port of server/app.py).
+"""HTTP/WS API server (port of server/app.py).
 
-Routes ported so far (the WS, config, barge-in, sources and admin routes
-of the JAX server are not):
+Route surface (parity with reference server.py:365-381):
 
     POST /v1/audio/speech   OpenAI-style synthesis -> streaming WAV
     GET  /v1/audio/voices   voice & language tables
+    WS   /ws/tts            text frames in -> binary PCM frames out
+    GET  /adapters          adapter capability descriptors
+    GET  /sources           text-source descriptors
+    GET  /config            merged runtime config
+    POST /config            validated mutation + hot swap + barge-in
     GET  /stats             orchestrator timeline/transcripts
+    POST /barge-in          interrupt current utterance
+    WS   /ws/barge-in       same, via websocket message
+    GET  /admin             static dashboard
 
 Run on the card with ``python -m project_morpheus_tpu_torch.server.app``
 (``--device cpu`` for the CPU).
@@ -19,10 +26,12 @@ import asyncio
 import json
 import logging
 import struct
+from pathlib import Path
 from typing import Optional
 
-from aiohttp import web
+from aiohttp import WSMsgType, web
 
+from .. import config as config_mod
 from ..adapters import VoiceSchema, registry as adapter_registry
 from ..adapters.runtime import SAMPLE_RATE, ServingRuntime, set_runtime
 from ..model.sampling import SamplingParams
@@ -33,8 +42,11 @@ from ..orchestrator import (
     PlaybackBuffer,
     stitch_chunks,
 )
+from ..text_sources import registry as source_registry
 
 logger = logging.getLogger(__name__)
+
+ADMIN_DIR = Path(__file__).parent / "admin"
 
 
 def riff_header(sample_rate: int = SAMPLE_RATE) -> bytes:
@@ -103,6 +115,8 @@ class ServerState:
         self.adapter_name = "local_torch"
         self.voice = DEFAULT_VOICE
         self.orchestrator: Optional[Orchestrator] = None
+        self.source_name: Optional[str] = None
+        self.source_task: Optional[asyncio.Task] = None
         self.generation = {
             "temperature": 0.6,
             "top_p": 0.9,
@@ -203,6 +217,129 @@ async def list_voices(request: web.Request) -> web.Response:
     )
 
 
+async def ws_tts(request: web.Request) -> web.WebSocketResponse:
+    state: ServerState = request.app[STATE]
+    ws = web.WebSocketResponse()
+    await ws.prepare(request)
+    async for msg in ws:
+        if msg.type != WSMsgType.TEXT:
+            continue
+        try:
+            payload = json.loads(msg.data)
+            text = payload.get("input") or payload.get("text")
+            voice = payload.get("voice") or state.voice
+        except json.JSONDecodeError:
+            text, voice = msg.data, state.voice
+        if not text:
+            continue
+        async for pcm in orchestrated_pcm_stream(state, text, voice):
+            await ws.send_bytes(pcm)
+        await ws.send_json({"eos": True})
+    return ws
+
+
+async def list_adapters(request: web.Request) -> web.Response:
+    return web.json_response(adapter_registry.available())
+
+
+async def list_sources(request: web.Request) -> web.Response:
+    return web.json_response(source_registry.available())
+
+
+async def get_config(request: web.Request) -> web.Response:
+    state: ServerState = request.app[STATE]
+    cfg = config_mod.get_current_config()
+    cfg.update(
+        {
+            "adapter": state.adapter_name,
+            "voice": state.voice,
+            "source": state.source_name,
+            **{k.upper(): str(v) for k, v in state.generation.items()},
+        }
+    )
+    return web.json_response(cfg)
+
+
+async def _consume_source(state: ServerState, source) -> None:
+    """Continuous mode: synthesise each pushed line (server.py:99-108)."""
+    try:
+        async for text in source.stream():
+            async for _ in orchestrated_pcm_stream(state, text, state.voice):
+                pass
+    except asyncio.CancelledError:
+        raise
+    except Exception:
+        logger.exception("text source failed")
+
+
+async def update_config(request: web.Request) -> web.Response:
+    """Validated runtime mutation (reference server.py:243-332)."""
+    state: ServerState = request.app[STATE]
+    try:
+        body = await request.json()
+    except json.JSONDecodeError:
+        raise web.HTTPBadRequest(text="invalid JSON body")
+
+    errors = []
+    persist: dict = {}
+
+    temp = body.get("temperature")
+    if temp is not None:
+        if not (0.1 <= float(temp) <= 1.5):
+            errors.append("temperature must be in [0.1, 1.5]")
+        else:
+            state.generation["temperature"] = float(temp)
+            persist["ORPHEUS_TEMPERATURE"] = float(temp)
+    top_p = body.get("top_p")
+    if top_p is not None:
+        if not (0.0 < float(top_p) <= 1.0):
+            errors.append("top_p must be in (0, 1]")
+        else:
+            state.generation["top_p"] = float(top_p)
+            persist["ORPHEUS_TOP_P"] = float(top_p)
+    max_tokens = body.get("max_tokens")
+    if max_tokens is not None:
+        if not (1 <= int(max_tokens) <= 200_000):
+            errors.append("max_tokens must be in [1, 200000]")
+        else:
+            state.generation["max_tokens"] = int(max_tokens)
+            persist["ORPHEUS_MAX_TOKENS"] = int(max_tokens)
+
+    adapter = body.get("adapter")
+    if adapter is not None:
+        if adapter not in adapter_registry.names():
+            errors.append(f"unknown adapter {adapter!r}")
+        else:
+            state.adapter_name = adapter
+    voice = body.get("voice")
+    if voice is not None:
+        state.voice = voice
+
+    source = body.get("source")
+    if source is not None:
+        if source not in source_registry.names():
+            errors.append(f"unknown source {source!r}")
+        else:
+            if state.source_task is not None:
+                state.source_task.cancel()
+                state.source_task = None
+            src = source_registry.create(source, **(body.get("source_config") or {}))
+            state.source_name = source
+            state.source_task = asyncio.get_running_loop().create_task(
+                _consume_source(state, src)
+            )
+
+    if errors:
+        return web.json_response({"errors": errors}, status=400)
+
+    # any accepted change interrupts the current utterance (server.py:308-309)
+    if state.orchestrator is not None and (adapter or voice or persist):
+        state.orchestrator.signal_barge_in()
+    if persist:
+        config_mod.save_config(persist)
+    return web.json_response({"ok": True, "applied": list(body)})
+
+
 async def stats(request: web.Request) -> web.Response:
     state: ServerState = request.app[STATE]
     orch = state.orchestrator
@@ -217,6 +354,37 @@ async def stats(request: web.Request) -> web.Response:
     )
 
 
+async def barge_in(request: web.Request) -> web.Response:
+    state: ServerState = request.app[STATE]
+    if state.orchestrator is not None:
+        state.orchestrator.signal_barge_in()
+        return web.json_response({"ok": True})
+    return web.json_response({"ok": False, "reason": "no active stream"})
+
+
+async def ws_barge_in(request: web.Request) -> web.WebSocketResponse:
+    state: ServerState = request.app[STATE]
+    ws = web.WebSocketResponse()
+    await ws.prepare(request)
+    async for msg in ws:
+        if msg.type == WSMsgType.TEXT:
+            if state.orchestrator is not None:
+                state.orchestrator.signal_barge_in()
+            await ws.send_json({"ok": True})
+    return ws
+
+
+async def admin_index(request: web.Request) -> web.Response:
+    index = ADMIN_DIR / "index.html"
+    return web.Response(text=index.read_text(encoding="utf-8"), content_type="text/html")
+
+
+async def _stop_source(app: web.Application) -> None:
+    task = app[STATE].source_task
+    if task is not None:
+        task.cancel()
+
+
 # --------------------------------------------------------------------- app
 
 
@@ -226,7 +394,17 @@ def create_app(generation: Optional[dict] = None) -> web.Application:
     app[STATE] = ServerState(generation)
     app.router.add_post("/v1/audio/speech", create_speech)
     app.router.add_get("/v1/audio/voices", list_voices)
+    app.router.add_get("/ws/tts", ws_tts)
+    app.router.add_get("/adapters", list_adapters)
+    app.router.add_get("/sources", list_sources)
+    app.router.add_get("/config", get_config)
+    app.router.add_post("/config", update_config)
     app.router.add_get("/stats", stats)
+    app.router.add_post("/barge-in", barge_in)
+    app.router.add_get("/ws/barge-in", ws_barge_in)
+    app.router.add_get("/admin", admin_index)
+    app.router.add_static("/admin/", ADMIN_DIR)
+    app.on_cleanup.append(_stop_source)
     return app
 
 
@@ -234,14 +412,16 @@ def main(argv=None) -> None:
     import argparse
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--host", default="0.0.0.0")
-    p.add_argument("--port", type=int, default=5005)
+    p.add_argument("--host", default=None, help="default: ORPHEUS_HOST (config.py)")
+    p.add_argument("--port", type=int, default=None, help="default: ORPHEUS_PORT (config.py)")
     p.add_argument("--device", default="cuda",
                    help="device the engine runs on (cuda unless cpu is asked for)")
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    cfg = config_mod.get_current_config()
     set_runtime(ServingRuntime(device=args.device))
-    web.run_app(create_app(), host=args.host, port=args.port)
+    web.run_app(create_app(), host=args.host or cfg["ORPHEUS_HOST"],
+                port=args.port or int(cfg["ORPHEUS_PORT"]))
 
 
 if __name__ == "__main__":

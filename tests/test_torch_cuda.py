@@ -1,6 +1,7 @@
-"""Checks that need the card: each CUDA kernel against its plain twin, and
-the engine's frame programs replayed from CUDA graphs against the same
-programs run eagerly.  This file imports no JAX, so it runs where the port
+"""Checks that need the card: each CUDA kernel against its plain twin, the
+engine's frame programs replayed from CUDA graphs against the same
+programs run eagerly, and an HF checkpoint directory loaded onto the card
+against the same params passed directly.  This file imports no JAX, so it runs where the port
 runs (``python -m pytest tests/test_torch_cuda.py`` on a machine with a
 card); everywhere else each test skips.
 
@@ -12,6 +13,9 @@ the kernel once: up to about two bf16 ulps apart)."""
 import pytest
 import torch
 
+import chip_smoke
+from project_morpheus_tpu_torch.model import hf_weights as hw
+from project_morpheus_tpu_torch.model.llama import init_llama_params
 from project_morpheus_tpu_torch.ops import decode_attention as da
 from project_morpheus_tpu_torch.ops import int8_gemv as ig
 from project_morpheus_tpu_torch.tools import graph_check as gc
@@ -129,3 +133,45 @@ def test_graph_replay_matches_eager(cuda, temperature):
     assert graph_programs.replays > 0 and eager_programs.captures == 0
     assert all(len(t) == gc.MAX_TOKENS for t in graph_toks)
     assert graph_toks == eager_toks
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("M", [1, 8])
+def test_untied_lm_head_gemv_matches_twin(cuda, M):
+    """An untied checkpoint's lm_head goes through the GEMV's (K, N) layout
+    at the 3B width: 3072 x 157,184."""
+    K, N = 3072, 157184
+    g = torch.Generator(device=cuda).manual_seed(M)
+    h = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
+    q = torch.randint(-127, 128, (K, N), generator=g, device=cuda, dtype=torch.int8)
+    scale = torch.rand(N, generator=g, device=cuda) * 0.02 + 1e-3
+    got = ig.int8_gemv(h, q, scale)
+    want = ig.int8_gemv_plain(h, q, scale, False).float()
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    err = (got.float() - want).abs()
+    assert torch.all(err <= 2**-6 * want.abs() + 1e-3), err.max()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("tie", [True, False])
+def test_hf_checkpoint_on_card_matches_direct_params(cuda, tie, tmp_path):
+    """A small bf16 HF directory (written by ``chip_smoke.py``'s writer),
+    tied and untied, loads onto the card bit for bit and serves the same
+    greedy traces as the params passed directly."""
+    cfg = gc.small_config(vocab_size=1000, tie_embeddings=tie)
+    params = init_llama_params(cfg, 5, cuda, torch.bfloat16)
+    params["embed"][cfg.vocab_size:] = 0
+    if not tie:
+        params["lm_head"][:, cfg.vocab_size:] = 0
+    chip_smoke.write_hf_checkpoint(tmp_path, params, cfg)
+    loaded, lcfg = hw.load_hf_checkpoint(tmp_path, device=cuda)
+    assert lcfg.tie_embeddings is tie and ("lm_head" in loaded) is not tie
+    for key in ("embed", "ln_f", "lm_head"):
+        if key in params:
+            assert torch.equal(loaded[key].view(torch.int16), params[key].view(torch.int16))
+    for key, v in params["layers"].items():
+        assert torch.equal(loaded["layers"][key].view(torch.int16), v.view(torch.int16))
+    got, _ = gc.serve_traces(gc.small_engine(cuda, True, loaded, lcfg), 0.0)
+    want, _ = gc.serve_traces(gc.small_engine(cuda, True, params, cfg), 0.0)
+    assert got == want and all(len(t) == gc.MAX_TOKENS for t in got)
