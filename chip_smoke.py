@@ -55,7 +55,26 @@ Phases, each raising on failure (exit code 1, no result lines):
    ``remote_sse`` against a local SSE stub replaying a served trace, whose
    PCM must equal the exact stream decoder's.  Prints the seconds to write
    and to load the files, the host's peak RSS during the load, and the
-   TTFA of the first HTTP request on the loaded weights.
+   TTFA of the first HTTP request on the loaded weights;
+8. training, after the serving runtimes are freed (TF32 off): (a) a
+   2-layer D=256 model in fp32, card vs CPU: loss and grads with dense
+   and blockwise attention, the chunked-vocab loss vs the dense one, 3
+   AdamW steps through ``make_train_step``; (b) the training attention at
+   the 3B shape (H=24, KV=8, HD=128, S=8192, bf16, right padding): the
+   card's SDPA path vs the plain blockwise twin, forward and dq/dk/dv,
+   with the backend and the ms of each; (c) Orpheus-3B at full width,
+   seq 8192, batch 1, 6 steps of ``train_loop`` (blockwise attention,
+   per-layer recompute, chunked-vocab loss): finite losses, the last
+   below the second; ms a step, tokens/s, peak memory and a ``train_mfu``
+   line; (d) LoRA r=32 on the 3B base at seq 2048, 3 steps: the base
+   bit-identical, the adapters moved; (e) the trained params merged with
+   the adapters, saved in the port's format, served from
+   ``ORPHEUS_CHECKPOINT_PATH`` (int8 weights and KV): tokens equal to a
+   runtime handed the params; (f) kill/resume at 4 layers, seq 1024, in a
+   process under ``torch.use_deterministic_algorithms``: equal losses and
+   params; (g) the training CLI as a subprocess; (h) the SNAC encoder,
+   card vs CPU in fp32: codes equal except at near-ties.  The training
+   path runs no hand-written kernel; its attention is a library call.
 
 Kernel launch counts are zeroed just before the first run of phase 4 (the
 main path), just before phase 5 and just before phase 7's first seeded
@@ -1130,6 +1149,486 @@ async def phase_checkpoint(card: str, records) -> None:
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+# ------------------------------------------------------------ phase 8
+
+TRAIN_SEQ = 8192      # the reference recipe's sequence length
+LORA_SEQ = 2048       # JAX's LoRA step: dense attention, no recompute
+RESUME_SEQ = 1024
+TEXT_IDS = 2048       # a training example: text ids, then the audio band
+ENCODE_SAMPLES = 24 * 2048  # 2.048 s at 24 kHz, whole 4-frame groups
+ENCODE_MARGIN = 1e-4  # card codes may differ only where the CPU's best two
+# cosines are closer than this (or below a level that already differed)
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|, in fp32 on the CPU."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def update_err(after, before, ref_after):
+    """Two runs' updates (params after less before, all leaves as one
+    vector): (relative L2 norm of their difference, largest elementwise
+    difference over the largest reference update).  AdamW divides each
+    gradient element by its own RMS, so elements whose gradient is near
+    its epsilon can differ by a part of the learning rate; the L2 norm is
+    the bound, the elementwise figure is printed."""
+    from project_morpheus_tpu_torch.training.pretrain import tree_leaves
+
+    num = den = worst = top = 0.0
+    for a, b, r in zip(tree_leaves(after), tree_leaves(before), tree_leaves(ref_after)):
+        want = r.detach().cpu().double() - b.cpu().double()
+        d = a.detach().cpu().double() - b.cpu().double() - want
+        num, den = num + float((d * d).sum()), den + float((want * want).sum())
+        worst, top = max(worst, float(d.abs().max())), max(top, float(want.abs().max()))
+    return (num / den) ** 0.5, worst / top
+
+
+def train_example(np, cfg, seq: int, seed: int) -> dict:
+    """``seq`` ids from a numpy seed: ``TEXT_IDS`` text ids, then 7-token
+    audio frames in the audio band (code + position-in-frame band)."""
+    from project_morpheus_tpu_torch.model.config import ORPHEUS_SPECIAL_TOKENS
+
+    rng = np.random.default_rng(seed)
+    n_text = min(TEXT_IDS, seq // 4)
+    text = rng.integers(0, min(cfg.vocab_size, 128_256), n_text)
+    pos = np.arange(seq - n_text)
+    audio = ORPHEUS_SPECIAL_TOKENS["audio_base"] + rng.integers(0, 4096, pos.size) + (pos % 7) * 4096
+    audio = np.minimum(audio, cfg.vocab_size - 1)
+    return {"input_ids": np.concatenate([text, audio]).tolist()}
+
+
+def phase_train_small(torch, np, card: str) -> None:
+    """(a) card vs CPU on a small model in fp32 with TF32 off: loss and
+    grads with dense and blockwise attention, the chunked-vocab loss vs the
+    dense one, and 3 AdamW steps through ``make_train_step``."""
+    from project_morpheus_tpu_torch.model.llama import init_llama_params
+    from project_morpheus_tpu_torch.tools.graph_check import small_config
+    from project_morpheus_tpu_torch.training import pretrain as tp
+
+    cfg = small_config()
+    cpu_params = init_llama_params(cfg, 3, "cpu", torch.float32)
+    rng = np.random.default_rng(3)
+    B, S = 2, 256
+    ids = rng.integers(5, cfg.vocab_size, (B, S)).astype(np.int32)
+    mask = np.ones((B, S), bool)
+    mask[1, 200:] = False
+    labels = np.where(mask, ids, -100).astype(np.int32)
+    labels[0, :9] = -100
+    batch = {"input_ids": ids, "attention_mask": mask, "labels": labels}
+
+    def copy(dev):
+        return tp.tree_map(lambda t: t.to(dev, copy=True), cpu_params)
+
+    def loss_grads(params, impl, chunk=0):
+        leaves = tp.tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = tp.causal_lm_loss(params, batch, cfg, attn_impl=impl, logits_chunk=chunk)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    tc = tp.TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10, max_grad_norm=0.5)
+    for impl in ("dense", "blockwise"):
+        lc, gc = loss_grads(copy("cpu"), impl)
+        lg, gg = loss_grads(copy("cuda"), impl)
+        loss_err = abs(float(lg) - float(lc)) / abs(float(lc))
+        grad_err = max(rel_err(a, b) for a, b in zip(gg, gc))
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            params = copy(dev)
+            opt = tp.make_optimizer(tc)
+            state, step = opt.init(params), tp.make_train_step(cfg, opt, attn_impl=impl)
+            runs[dev] = (params, [float(step(params, state, batch)[2]) for _ in range(3)])
+        step_err = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"][1], runs["cpu"][1]))
+        upd, upd_max = update_err(runs["cuda"][0], cpu_params, runs["cpu"][0])
+        if loss_err > 1e-5 or grad_err > 1e-4 or step_err > 1e-5 or upd > 1e-3:
+            raise AssertionError(f"train {impl}, card vs CPU: loss {loss_err:.2e}, grads "
+                                 f"{grad_err:.2e}, step losses {step_err:.2e}, updates {upd:.2e}")
+        log(f"train (a) {impl}, card vs CPU (fp32, TF32 off; 2 layers, D=256, vocab 1024, "
+            f"B=2 x S=256, one row padded): max rel err loss {loss_err:.2e}, grads "
+            f"{grad_err:.2e}, 3 AdamW steps' losses {step_err:.2e}, their updates {upd:.2e} "
+            f"(relative L2; largest element {upd_max:.2e} of the largest update) (limits 1e-5, "
+            f"1e-4, 1e-5, 1e-3)")
+    dense, _ = loss_grads(copy("cuda"), "blockwise")
+    chunked, _ = loss_grads(copy("cuda"), "blockwise", chunk=64)
+    chunk_err = abs(float(chunked) - float(dense)) / abs(float(dense))
+    if chunk_err > 1e-5:
+        raise AssertionError(f"chunked-vocab loss vs dense on the card: {chunk_err:.2e}")
+    log(f"train (a) chunked-vocab loss (64-position chunks) vs dense loss on the card: max rel "
+        f"err {chunk_err:.2e} (limit 1e-5)")
+
+
+def phase_train_attention(torch, card: str) -> None:
+    """(b) the training attention at the 3B shape (H=24, KV=8, HD=128,
+    S=8192, B=1, bf16, right padding): the card's SDPA path vs the plain
+    blockwise twin, forward and dq/dk/dv, with the time of each."""
+    from project_morpheus_tpu_torch.ops import blockwise_attention as ba
+
+    B, S, H, KV, HD = 1, TRAIN_SEQ, 24, 8, 128
+    g = torch.Generator(device="cuda").manual_seed(21)
+    q, k, v, w = (torch.randn(B, S, h, HD, generator=g, device="cuda").to(torch.bfloat16)
+                  for h in (H, KV, KV, H))
+    mask = torch.ones(B, S, dtype=torch.bool, device="cuda")
+    mask[:, S - 1000:] = False
+
+    def run(fn, reps):
+        """(output, dq/dk/dv, forward ms, forward + backward ms): the times
+        are the mean of ``reps`` runs after a warm one, or of one run."""
+        fwd = both = 0.0
+        for i in range(reps + 1):
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*leaves, mask)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            grads = torch.autograd.grad((out.float() * w.float()).sum(), leaves)
+            torch.cuda.synchronize()
+            if i > 0 or reps == 0:
+                fwd, both = fwd + t1 - t0, both + time.perf_counter() - t0
+        n = max(reps, 1)
+        return out.detach(), grads, 1e3 * fwd / n, 1e3 * both / n
+
+    out, grads, fwd_ms, all_ms = run(ba.sdpa_attention, 5)
+    tout, tgrads, tfwd_ms, tall_ms = run(ba.blockwise_attention_twin, 0)
+    check_close(out, tout.float(), "training attention forward, SDPA vs twin")
+    errs = [rel_err(a, b) for a, b in zip(grads, tgrads)]
+    if max(errs) > 2e-2:
+        raise AssertionError(f"training attention dq/dk/dv vs twin: {errs}")
+    flops = 2 * S * S * HD * H  # causal QK^T and PV
+    log(f"train (b) attention at B=1, S=8192, H=24, KV=8, HD=128, bf16, keys past 7192 "
+        f"padded: SDPA backend {ba.SDPA_BACKEND} {fwd_ms:.2f} ms forward, {all_ms:.2f} ms "
+        f"forward + backward (means of 5 runs, the loss's product included); plain blockwise "
+        f"twin {tfwd_ms:.1f} / {tall_ms:.1f} ms (one run); forward "
+        f"within 1e-2|ref| + 2e-3, dq/dk/dv max err {errs[0]:.2e} / {errs[1]:.2e} / "
+        f"{errs[2]:.2e} of max |ref| (limit 2e-2); causal forward {flops / 1e12:.3f} TFLOP, "
+        f"{flops / fwd_ms / 1e9:.0f} TFLOP/s [{card}]")
+
+
+def matmul_params(cfg) -> int:
+    """Weights that meet a matmul each token: the projections of every
+    layer and the lm head (tied: the embedding, read as a matrix); the
+    embedding lookup is not a matmul."""
+    D, F, HD = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    per_layer = D * cfg.num_heads * HD * 2 + D * cfg.num_kv_heads * HD * 2 + 3 * D * F
+    return cfg.num_layers * per_layer + D * cfg.padded_vocab
+
+
+def phase_train_3b(torch, np, card: str):
+    """(c) Orpheus-3B at full width, seq 8192, batch 1, through
+    ``train_loop``'s auto long posture; returns the trained params."""
+    from project_morpheus_tpu_torch.model import LlamaConfig
+    from project_morpheus_tpu_torch.model.llama import init_llama_params
+    from project_morpheus_tpu_torch.training.pretrain import TrainConfig, resolve_attn, train_loop
+
+    cfg = LlamaConfig.orpheus_3b()
+    params = init_llama_params(cfg, 13, "cuda", torch.bfloat16)
+    ex = train_example(np, cfg, TRAIN_SEQ, 13)
+    batches = [{"kind": ("text", "audio")[i % 2], "examples": [ex]} for i in range(6)]
+    tc = TrainConfig(seq_len=TRAIN_SEQ, warmup_steps=1, log_every=1)
+    logs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trained, _ = train_loop(params, cfg, iter(batches), tc=tc, log=logs.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+    del params
+    losses = [r.get("text_loss", r.get("audio_loss")) for r in logs]
+    if len(losses) != 6 or not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[1]:
+        raise AssertionError(f"3B training losses {losses}")
+    step_s = (logs[-1]["elapsed_s"] - logs[0]["elapsed_s"]) / 5
+    n_mm = matmul_params(cfg)
+    attn = 2 * TRAIN_SEQ**2 * cfg.head_dim * cfg.num_heads * cfg.num_layers
+    flops = 6 * n_mm * TRAIN_SEQ + 3 * attn
+    log(f"train (c) Orpheus-3B full width (28 layers, D 3072, vocab 157,184 padded, tied, bf16), "
+        f"seq 8192, batch 1, {resolve_attn(TRAIN_SEQ)} + chunked-vocab loss, AdamW (bf16 "
+        f"moments): losses {' '.join(f'{x:.4f}' for x in losses)} (first step at rate 0); "
+        f"{1e3 * step_s:.1f} ms/step over steps 2-6, {TRAIN_SEQ / step_s:.0f} tokens/s; 6 steps "
+        f"in {wall:.1f} s; peak allocated {peak / 2**30:.2f} GiB, reserved {reserved / 2**30:.2f} "
+        f"GiB (the caller's 6.6 GB of initial params included) [{card}]")
+    print(f"train_mfu: {flops / step_s / H100_BF16_OPS_PER_S:.4f} = (6 * N_matmul * T + 3 * "
+          f"causal attention FLOPs) / step time / 989e12; N_matmul = {n_mm:,} (28 layers' "
+          f"projections + the tied lm head), T = {TRAIN_SEQ}, causal attention = 2 * S^2 * HD * H "
+          f"* L = {attn:.4e} FLOPs forward; recompute not counted; step {1e3 * step_s:.1f} ms "
+          f"[{card}]", flush=True)
+    return trained, cfg
+
+
+def phase_train_lora(torch, np, card: str, base, cfg):
+    """(d) LoRA r=32, alpha=64, rslora on the 3B base, seq 2048, batch 1,
+    3 steps: the base bit-identical, the adapters moved."""
+    from project_morpheus_tpu_torch.training.data import pad_collate
+    from project_morpheus_tpu_torch.training.lora import (
+        LoraConfig, init_lora_params, make_lora_train_step)
+    from project_morpheus_tpu_torch.training.pretrain import TrainConfig, make_optimizer, tree_leaves
+
+    lc = LoraConfig(rank=32, alpha=64.0, rslora=True)
+    lora = init_lora_params(cfg, lc, 17, "cuda")
+    before = [t.clone() for t in tree_leaves(base)]
+    opt = make_optimizer(TrainConfig(learning_rate=1e-4, warmup_steps=1, total_steps=10))
+    state, step = opt.init(lora), make_lora_train_step(cfg, lc, opt)
+    batch = pad_collate([train_example(np, cfg, LORA_SEQ, 17)], max_len=LORA_SEQ)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        lora, state, loss = step(lora, state, base, batch)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(base), before))
+    del before
+    moved = float(lora["layers"]["wq"]["b"].detach().abs().sum())
+    if not same or moved == 0 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"LoRA: base unchanged {same}, |B| {moved}, losses {losses}")
+    log(f"train (d) LoRA r=32 alpha=64 rslora on the 3B base, seq 2048, batch 1, dense "
+        f"attention, no recompute: losses {' '.join(f'{x:.4f}' for x in losses)}; "
+        f"{1e3 * sum(times[1:]) / 2:.1f} ms/step (steps 2-3); peak allocated "
+        f"{peak / 2**30:.2f} GiB; base params bit-identical, adapters moved [{card}]")
+    return lora, lc
+
+
+async def serve_traces_of(runtime, prompts, seeds):
+    from project_morpheus_tpu_torch.adapters import runtime as rt
+
+    rt.set_runtime(runtime)
+    try:
+        _, wall, traces = await serve(list(prompts), 7 * 12, seeds)
+    finally:
+        await runtime.engine.close()
+        rt.set_runtime(None)
+    return traces, wall
+
+
+def phase_train_to_serve(torch, card: str, trained, cfg, lora, lc) -> None:
+    """(e) the trained 3B params merged with the adapters, saved in the
+    port's format and served from ``ORPHEUS_CHECKPOINT_PATH`` (int8
+    weights, int8 KV): tokens equal to a runtime handed the same params."""
+    from project_morpheus_tpu_torch.adapters import runtime as rt
+    from project_morpheus_tpu_torch.training.checkpoint import save_params
+    from project_morpheus_tpu_torch.training.lora import merge_lora
+    from project_morpheus_tpu_torch.training.pretrain import tree_leaves
+
+    merged = merge_lora(trained, lora, lc)
+    workdir = tempfile.mkdtemp(prefix="orpheus_trained_")
+    try:
+        t0 = time.perf_counter()
+        save_params(Path(workdir, "trained"), merged, step=6, cfg=cfg)
+        write_s = time.perf_counter() - t0
+        nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(merged))
+        for k in ("ORPHEUS_SNAC_PATH", "ORPHEUS_TOKENIZER_PATH"):
+            os.environ.pop(k, None)  # phase 7's files are gone
+        os.environ.update(ORPHEUS_CHECKPOINT_PATH=str(Path(workdir, "trained")),
+                          ORPHEUS_QUANT="int8", ORPHEUS_KV_QUANT="int8", ORPHEUS_MODEL_SIZE="3b",
+                          ORPHEUS_MAX_SEQ="8192", ORPHEUS_MAX_SLOTS="8")
+        kw = dict(device="cuda", attn_impl="kernel", banded_sampling=True)
+        loaded_rt = rt.ServingRuntime(**kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded, lcfg = loaded_rt.load_params()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if lcfg != cfg or not all(torch.equal(a, b) for a, b in
+                                  zip(tree_leaves(loaded), tree_leaves(merged))):
+            raise AssertionError("the port's checkpoint did not load back bit for bit")
+        loaded_rt.build((loaded, lcfg))
+        del loaded
+        seeds = [500, 501]
+        got, wall = asyncio.run(serve_traces_of(loaded_rt, CKPT_PROMPTS[:2], seeds))
+        del loaded_rt
+        direct_rt = rt.ServingRuntime(**kw)
+        direct_rt.build((merged, cfg))
+        want, _ = asyncio.run(serve_traces_of(direct_rt, CKPT_PROMPTS[:2], seeds))
+        del direct_rt
+        if got != want or any(len(t) == 0 for t in got):
+            raise AssertionError("tokens served from the saved checkpoint differ from the params'")
+        log(f"train (e) train to serve: merged 3B params saved in the port's format "
+            f"({nbytes / 1e9:.3f} GB, {write_s:.2f} s), loaded from ORPHEUS_CHECKPOINT_PATH in "
+            f"{load_s:.2f} s ({nbytes / 1e9 / load_s:.2f} GB/s) bit for bit; 2 seeded requests "
+            f"(int8 weights, int8 KV) in {wall:.2f} s: {sum(map(len, got))} tokens, equal to a "
+            f"runtime handed the params [{card}]")
+    finally:
+        os.environ.pop("ORPHEUS_CHECKPOINT_PATH", None)
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def kill_resume_main() -> int:
+    """(f), in a process of its own (``CUBLAS_WORKSPACE_CONFIG`` set, and
+    ``torch.use_deterministic_algorithms``: an op without a deterministic
+    form raises; the memory-efficient attention's backward switches to its
+    deterministic algorithm, which it otherwise only warns about):
+    Orpheus-3B widths at 4 layers,
+    seq 1024, blockwise attention with recompute; 4 steps straight vs 2
+    steps, ``save_train_state``, fresh objects, ``restore_train_state`` and
+    2 more.  Prints one JSON line; exit code 0 when losses and params are
+    equal."""
+    import dataclasses
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from project_morpheus_tpu_torch.model import LlamaConfig
+    from project_morpheus_tpu_torch.model.llama import init_llama_params
+    from project_morpheus_tpu_torch.training.pretrain import TrainConfig, train_loop, tree_leaves
+
+    torch.use_deterministic_algorithms(True)
+    cfg = dataclasses.replace(LlamaConfig.orpheus_3b(), num_layers=4)
+    params = init_llama_params(cfg, 19, "cuda", torch.bfloat16)
+    ex = train_example(np, cfg, RESUME_SEQ, 19)
+
+    def batches():
+        return iter([{"kind": ("text", "audio")[i % 2], "examples": [ex]} for i in range(4)])
+
+    tc = TrainConfig(seq_len=RESUME_SEQ, warmup_steps=1, total_steps=4, log_every=1,
+                     attn_impl="blockwise", remat="on")
+    workdir = tempfile.mkdtemp(prefix="orpheus_resume_")
+    runs = {"straight": [], "resumed": []}
+
+    def losses(name):
+        return lambda r: runs[name].extend(v for k, v in r.items() if k.endswith("_loss"))
+
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            straight, _ = train_loop(params, cfg, batches(), tc=tc, log=losses("straight"))
+            train_loop(params, cfg, batches(), tc=dataclasses.replace(tc, total_steps=2),
+                       checkpoint_dir=workdir, log=losses("resumed"))
+            resumed, _ = train_loop(params, cfg, batches(), tc=tc, checkpoint_dir=workdir,
+                                    log=losses("resumed"))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    same_params = all(torch.equal(x, y) for x, y in zip(tree_leaves(straight), tree_leaves(resumed)))
+    notes = sorted({str(w.message).split(".")[0] for w in caught
+                    if "determinis" in str(w.message)})
+    print(json.dumps({**runs, "params_equal": same_params, "determinism_warnings": notes}),
+          flush=True)
+    ok = runs["straight"] == runs["resumed"] and len(runs["straight"]) == 4
+    return 0 if ok and same_params else 1
+
+
+def phase_train_resume(card: str) -> None:
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    res = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; "
+                          "sys.exit(chip_smoke.kill_resume_main())"],
+                         capture_output=True, text=True, env=env, timeout=600)
+    lines = [l for l in res.stdout.splitlines() if l.startswith("{")]
+    if res.returncode != 0 or not lines:
+        raise AssertionError(f"kill/resume: rc {res.returncode}\n{res.stdout[-3000:]}\n"
+                             f"{res.stderr[-3000:]}")
+    out = json.loads(lines[-1])
+    log(f"train (f) kill/resume, 3B widths at 4 layers, seq 1024, blockwise: straight losses "
+        f"{out['straight']}, killed after 2 and resumed {out['resumed']}: equal, params bit-equal, "
+        f"under torch.use_deterministic_algorithms(True) (no op raised; warnings: "
+        f"{out['determinism_warnings'] or 'none'}) [{card}]")
+
+
+def phase_train_cli(card: str) -> None:
+    """(g) ``python -m project_morpheus_tpu_torch.training pretrain`` on a
+    tiny config, on the card, as a subprocess."""
+    workdir = Path(tempfile.mkdtemp(prefix="orpheus_cli_"))
+    try:
+        for name, seed in (("text", 0), ("audio", 1)):
+            rows = [[(seed * 7919 + i * 104729 + j * 31) % 1000 + 1 for j in range(16)]
+                    for i in range(16)]
+            (workdir / f"{name}.jsonl").write_text(
+                "".join(json.dumps({"input_ids": ids}) + "\n" for ids in rows))
+        (workdir / "cfg.yaml").write_text(
+            f"model_size: tiny_vocab\ntext_data: {workdir}/text.jsonl\naudio_data: "
+            f"{workdir}/audio.jsonl\nbatch_size: 4\ntotal_steps: 4\nseq_length: 16\n"
+            f"learning_rate: 1e-3\nwarmup_steps: 1\ncheckpoint_dir: {workdir}/ckpt\n")
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "project_morpheus_tpu_torch.training",
+                              "pretrain", "--config", str(workdir / "cfg.yaml")],
+                             capture_output=True, text=True, timeout=300)
+        secs = time.perf_counter() - t0
+        logs = [json.loads(l) for l in res.stdout.splitlines() if l.startswith("{")]
+        if res.returncode != 0 or not any("text_loss" in r for r in logs) or \
+                not (workdir / "ckpt" / "step_4" / "params.safetensors").exists():
+            raise AssertionError(f"training CLI: rc {res.returncode}\n{res.stdout[-2000:]}\n"
+                                 f"{res.stderr[-2000:]}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"train (g) CLI: python -m project_morpheus_tpu_torch.training pretrain (tiny_vocab, bf16, "
+        f"on the card) exited 0 in {secs:.1f} s, logged {logs[0]}, saved step_4 [{card}]")
+
+
+def phase_snac_encoder(torch, np, card: str) -> None:
+    """(h) the SNAC encoder, snac_24khz, random weights, 2.048 s of seeded
+    audio: card vs CPU in fp32 with TF32 off."""
+    from project_morpheus_tpu_torch.codec import snac
+    from project_morpheus_tpu_torch.codec.snac_config import SNACConfig
+    from project_morpheus_tpu_torch.codec.weights import init_snac_params
+
+    cfg = SNACConfig.snac_24khz()
+    audio = (np.random.default_rng(23).standard_normal((1, ENCODE_SAMPLES)) * 0.1).astype(np.float32)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        params = init_snac_params(cfg, 5, dev)
+        x = torch.tensor(audio, device=dev)
+        snac.snac_encode(params, x, cfg)  # warm
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        codes, margins = snac.rvq_encode(params, snac.encode_latent(params, x, cfg), cfg)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        res[dev] = ([c.cpu() for c in codes], [m.cpu() for m in margins],
+                    1e3 * (time.perf_counter() - t0))
+    (cc, cm, cpu_ms), (gc, _, card_ms) = res["cpu"], res["cuda"]
+    # a code may differ where the CPU's best two cosines are within the
+    # margin, or under a coarser level's code that already differed
+    frames = cc[-1].shape[1] * cfg.vq_strides[-1]
+    free = torch.zeros(frames, dtype=torch.bool)
+    near = bad = 0
+    for level, stride in enumerate(cfg.vq_strides):
+        tie = cm[level][0] < ENCODE_MARGIN
+        near += int(tie.sum())
+        differ = cc[level][0] != gc[level][0]
+        excused = tie | free[:differ.numel() * stride].view(-1, stride).any(dim=1)
+        bad += int((differ & ~excused).sum())
+        free |= (differ & excused).repeat_interleave(stride)[:frames]
+    n = sum(c.numel() for c in cc)
+    if bad:
+        raise AssertionError(f"SNAC encoder: {bad} codes differ card vs CPU away from near-ties")
+    log(f"train (h) SNAC encoder snac_24khz, {ENCODE_SAMPLES} samples: {n} codes, card equals "
+        f"CPU except at near-ties; {near} positions within a {ENCODE_MARGIN:g} cosine margin; "
+        f"card {card_ms:.2f} ms, CPU {cpu_ms:.1f} ms (fp32, TF32 off) [{card}]")
+
+
+def phase_training(card: str) -> None:
+    """Phase 8 (see the module docstring)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from project_morpheus_tpu_torch.adapters import runtime as rt
+
+    rt.set_runtime(None)  # serving runtimes of phases 4-7
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated at the start; "
+        f"matmul TF32 {torch.backends.cuda.matmul.allow_tf32}, cuDNN TF32 "
+        f"{torch.backends.cudnn.allow_tf32}")
+    phase_train_small(torch, np, card)
+    phase_train_attention(torch, card)
+    trained, cfg = phase_train_3b(torch, np, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lora, lc = phase_train_lora(torch, np, card, trained, cfg)
+    phase_train_to_serve(torch, card, trained, cfg, lora, lc)
+    del trained, lora
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_resume(card)
+    phase_train_cli(card)
+    phase_snac_encoder(torch, np, card)
+
+
 def run(card: str) -> None:
     import torch
 
@@ -1154,6 +1653,7 @@ def run(card: str) -> None:
 
     gemv_line = asyncio.run(serving_phases(card, records))
     asyncio.run(phase_checkpoint(card, records))
+    phase_training(card)
 
     print(gemv_line)
     print(card)

@@ -9,8 +9,10 @@ configuration (port of adapters/runtime.py):
   the CPU, bf16 otherwise).
 - ``ORPHEUS_CHECKPOINT_PATH``: an HF release directory (``config.json``
   and safetensors or ``pytorch_model*.bin`` shards), loaded by
-  ``model/hf_weights.py``; unset -> random weights.  An orbax directory
-  raises (the port's checkpoint format comes with training).
+  ``model/hf_weights.py``, or a directory the port's
+  ``training.checkpoint.save_params`` wrote (``llama_config.json`` beside
+  it sets the architecture); unset -> random weights.  An orbax directory
+  of the JAX package raises.
 - ``ORPHEUS_SNAC_PATH``: ``.npz`` of torch-layout SNAC state (write one
   with ``tools/convert_snac.py``); unset -> random SNAC weights.
 - ``ORPHEUS_TOKENIZER_PATH``: read by ``model/tokenizer.default_tokenizer``.
@@ -29,6 +31,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import json
 import os
 from pathlib import Path
 from typing import Optional, Tuple
@@ -160,15 +163,29 @@ class ServingRuntime:
         d = Path(os.path.expanduser(ckpt))
         if not d.is_dir():
             raise FileNotFoundError(f"ORPHEUS_CHECKPOINT_PATH={ckpt!r} is not a directory")
-        if not (any(d.glob("*.safetensors")) or any(d.glob("pytorch_model*.bin"))):
-            raise NotImplementedError(
-                f"ORPHEUS_CHECKPOINT_PATH={ckpt!r} holds no *.safetensors or "
-                "pytorch_model*.bin: orbax checkpoints (training/checkpoint.py) are not "
-                "read by the port; its checkpoint format comes with the training slice")
-        from ..model.hf_weights import load_hf_checkpoint
+        if any(d.glob("*.safetensors")) or any(d.glob("pytorch_model*.bin")):
+            from ..model.hf_weights import load_hf_checkpoint
 
-        return load_hf_checkpoint(d, None if (d / "config.json").exists() else cfg,
-                                  dtype=dtype, device=self.device)
+            return load_hf_checkpoint(d, None if (d / "config.json").exists() else cfg,
+                                      dtype=dtype, device=self.device)
+        from ..training.checkpoint import find_params, restore_params
+        from ..model.bridge import tree_map
+
+        if find_params(d) is None:
+            raise NotImplementedError(
+                f"ORPHEUS_CHECKPOINT_PATH={ckpt!r} is neither an HF directory (*.safetensors, "
+                "pytorch_model*.bin) nor a checkpoint of the port's trainer "
+                "(step_N/ or latest/ with params.safetensors): orbax checkpoints of the JAX "
+                "package are not read (orbax is not installed where the port runs); write "
+                "one with project_morpheus_tpu_torch.training.checkpoint.save_params")
+        # the trainer's own checkpoint; llama_config.json beside it, where
+        # save_params wrote one, sets the architecture; leaves take the
+        # runtime's dtype, as an HF directory's do
+        cfg_json = d / "llama_config.json"
+        if cfg_json.exists():
+            cfg = LlamaConfig(**json.loads(cfg_json.read_text()))
+        params = restore_params(d, device=self.device)
+        return tree_map(lambda t: t.to(dtype), params), cfg
 
     def build(self, loaded: Optional[Tuple[dict, LlamaConfig]] = None) -> None:
         """Build the codec and the engine; ``loaded`` is ``load_params()``'s

@@ -1,14 +1,16 @@
-"""SNAC decoder on ``(B, T, C)`` tensors (port of codec/snac_jax.py, decode).
+"""SNAC codec on ``(B, T, C)`` tensors (port of codec/snac_jax.py).
 
 Same formulation as the JAX package: weight-norm folded at load time
 (``weights.py``), convs as shifted-slice matmuls, the even-stride
 transposed convs as four matmuls over phase-stacked weight banks, and the
-noise blocks zeroed for deterministic serving.  The encoder is not ported.
+noise blocks zeroed for deterministic serving.  The encoder
+(:func:`snac_encode`) turns audio back into codes for training-data
+preparation.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -138,3 +140,66 @@ def snac_decode(params: Params, codes: Sequence[torch.Tensor], cfg: SNACConfig) 
     x = snake(x, dec["alpha_out"])
     x = conv1d(x, dec["out_w"], dec["out_b"], padding=3)
     return torch.tanh(x)[..., 0]
+
+
+# ------------------------------------------------------------------- encoder
+
+
+def _encoder_block(x: torch.Tensor, p: Params, *, stride: int, groups: int) -> torch.Tensor:
+    for j, dil in enumerate((1, 3, 9)):
+        x = _residual_unit(x, p[f"res{j + 1}"], dilation=dil, groups=groups)
+    x = snake(x, p["alpha_down"])
+    return conv1d(x, p["down_w"], p["down_b"], stride=stride, padding=math.ceil(stride / 2))
+
+
+def rvq_encode(params: Params, z: torch.Tensor, cfg: SNACConfig
+               ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Residual quantization of the latent ``z`` (B, T, latent): per level,
+    average-pool by its stride, project to the codebook space and take the
+    entry of largest cosine similarity.  Returns the int32 codes of each
+    level and, beside them, each position's margin: the best cosine less
+    the second best (where two devices' roundings may choose differently)."""
+    codes, margins = [], []
+    residual = z
+    for level, stride in enumerate(cfg.vq_strides):
+        q = params["quantizer"][level]
+        x = residual
+        if stride > 1:
+            t = (x.shape[1] // stride) * stride
+            x = x[:, :t].reshape(x.shape[0], t // stride, stride, x.shape[2]).mean(dim=2)
+        zp = conv1d(x, q["in_w"], q["in_b"])  # latent -> codebook dim
+        zn = zp / (torch.linalg.vector_norm(zp, dim=-1, keepdim=True) + 1e-8)
+        cb = q["codebook"]
+        cbn = cb / (torch.linalg.vector_norm(cb, dim=-1, keepdim=True) + 1e-8)
+        cos = zn @ cbn.T  # (B, Tl, codebook_size)
+        idx = cos.argmax(dim=-1)  # the first of equal maxima, as jnp.argmax
+        top2 = torch.topk(cos, 2, dim=-1).values
+        codes.append(idx.to(torch.int32))
+        margins.append(top2[..., 0] - top2[..., 1])
+        zq = conv1d(cb[idx], q["out_w"], q["out_b"])
+        if stride > 1:
+            zq = torch.repeat_interleave(zq, stride, dim=1)
+        residual = residual - zq
+    return codes, margins
+
+
+@torch.no_grad()
+def encode_latent(params: Params, audio: torch.Tensor, cfg: SNACConfig) -> torch.Tensor:
+    """The encoder's conv stack: waveform ``(B, T)`` -> latent
+    ``(B, T / hop, latent)``."""
+    enc = params["encoder"]
+    x = conv1d(audio[..., None], enc["in_w"], enc["in_b"], padding=3)
+    d = cfg.encoder_dim
+    for i, rate in enumerate(cfg.encoder_rates):
+        d *= 2
+        x = _encoder_block(x, enc["blocks"][i], stride=rate,
+                           groups=(d // 2) if cfg.depthwise else 1)
+    return conv1d(x, enc["out_w"], enc["out_b"], padding=3, groups=d if cfg.depthwise else 1)
+
+
+@torch.no_grad()
+def snac_encode(params: Params, audio: torch.Tensor, cfg: SNACConfig) -> Tuple[torch.Tensor, ...]:
+    """Encode a waveform ``(B, T)`` into one int32 code tensor per codebook
+    level (the inverse of :func:`snac_decode`); ``T`` must be a whole
+    number of ``hop_length * vq_strides[0]`` samples, as in JAX."""
+    return tuple(rvq_encode(params, encode_latent(params, audio, cfg), cfg)[0])

@@ -1,8 +1,10 @@
-"""Llama-3.2-class decoder forward for serving (port of model/llama.py).
+"""Llama-3.2-class decoder forward (port of model/llama.py).
 
-Inference only: chunked prefill into the slot KV cache and the per-token
-decode step, with the JAX package's parameter tree and cache layouts kept
-byte-identical so the tests hold both packages to the same numbers:
+Serving: chunked prefill into the slot KV cache and the per-token decode
+step; training: the full-sequence forward (dense or blockwise attention,
+LoRA, per-layer recompute), which also prefills a cache.  The JAX
+package's parameter tree and cache layouts are kept byte-identical so the
+tests hold both packages to the same numbers:
 
 - params: ``{"embed", "layers": {stacked (L, ...) leaves}, "ln_f"[,
   "lm_head"]}``; a weight is a tensor or an int8 leaf ``{"q", "scale"}``
@@ -22,10 +24,11 @@ same points and differ only in summation order.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.decode_attention import (
     decode_attention_int8_slots,
@@ -151,11 +154,14 @@ def _mlp(h, wl, cfg: LlamaConfig, mm=matmul_maybe_quant):
     return mm(act, wl["wd"])
 
 
-def _logits(params: Params, x: torch.Tensor) -> torch.Tensor:
+def lm_head_logits(params: Params, h: torch.Tensor) -> torch.Tensor:
+    """Final hidden -> fp32 logits over ``padded_vocab`` (tied embedding or
+    a separate lm_head); the chunked-vocab training loss applies it to one
+    sequence chunk at a time."""
     head = params.get("lm_head")
     if head is None:
-        return tied_lm_head_logits(x, params["embed"])
-    return matmul_maybe_quant(x, head).float()
+        return tied_lm_head_logits(h, params["embed"])
+    return matmul_maybe_quant(h, head).float()
 
 
 def _dot_dtype(dt: torch.dtype) -> torch.dtype:
@@ -303,7 +309,7 @@ def llama_prefill_chunk_batch(
         h = rmsnorm(x, wl["ln2"], cfg.rms_eps)
         x = x + _mlp(h, wl, cfg, mm)
     x_last = torch.stack([x[j, n - 1] for j, n in enumerate(lengths)])  # (J, D)
-    return _logits(params, rmsnorm(x_last, params["ln_f"], cfg.rms_eps))
+    return lm_head_logits(params, rmsnorm(x_last, params["ln_f"], cfg.rms_eps))
 
 
 # ------------------------------------------------------------------- decode
@@ -408,10 +414,203 @@ def llama_decode_step(
         h = rmsnorm(x, wl["ln2"], cfg.rms_eps)
         x = x + _mlp(h, wl, cfg)
     x = rmsnorm(x[:, 0], params["ln_f"], cfg.rms_eps)
-    logits = _logits(params, x)
+    logits = lm_head_logits(params, x)
     if active is not None:
         logits = torch.where(active[:, None], logits, torch.zeros_like(logits))
     return logits
+
+
+# ---------------------------------------------- full-sequence forward (training)
+
+NEG = -1e30
+
+
+def _per_layer(tree) -> List:
+    """Per-layer views of a stacked ``(L, ...)`` tree, dict nesting kept
+    (int8 ``{"q", "scale"}`` leaves and LoRA ``{"a", "b"}`` pairs too).
+
+    ``unbind`` (or ``squeeze`` for a one-layer group), not indexing: the
+    backward of ``w[i]`` writes a zero-filled copy of the whole stack for
+    every layer (28 x 5.6 GB of traffic at 3B), where these give one
+    stacked gradient, or none to copy for a one-layer group."""
+    if isinstance(tree, dict):
+        parts = {k: _per_layer(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    return [tree.squeeze(0)] if tree.shape[0] == 1 else list(tree.unbind(0))
+
+
+def _layer_list(lp) -> List[Dict]:
+    """Per-layer weights from the canonical stacked dict or from the
+    grouped layout (a list of ``(L/groups, ...)`` dicts)."""
+    groups = lp if isinstance(lp, (list, tuple)) else [lp]
+    return [wl for g in groups for wl in _per_layer(g)]
+
+
+def _attn_full(q, k, v, mask, cfg: LlamaConfig) -> torch.Tensor:
+    """Dense causal GQA attention: ``(B, S, H, HD)`` queries over
+    ``(B, S, KV, HD)`` keys and values, ``mask`` (B, S, S) True = visible;
+    fp32 scores, the -1e30 fill, probabilities rounded to V's dtype."""
+    KV, HD = cfg.num_kv_heads, cfg.head_dim
+    B, S = q.shape[:2]
+    qg = q.reshape(B, S, KV, cfg.num_heads // KV, HD)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * HD**-0.5
+    scores = scores.masked_fill(~mask[:, None, None], NEG)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype).float(), v.float())
+    return out.reshape(B, S, cfg.num_heads * HD).to(q.dtype)
+
+
+def _proj(h, wl, ll, name: str, lora_scale: float) -> torch.Tensor:
+    """``h @ W`` plus the low-rank delta ``scale * (h @ A) @ B``: the
+    adapters' dtype sets the delta's (JAX promotes bf16 ``h`` against fp32
+    adapters), which is then rounded to the output's."""
+    y = matmul_maybe_quant(h, wl[name])
+    if ll is not None and name in ll:
+        a, b = ll[name]["a"], ll[name]["b"]
+        y = y + lora_scale * ((h.to(a.dtype) @ a) @ b).to(y.dtype)
+    return y
+
+
+def _train_layer(x, wl, ll, positions, inv_freqs, attn_mask, mask, cfg: LlamaConfig,
+                 attn_impl: str, lora_scale: float):
+    """One decoder layer of the full-sequence forward: ``(x, k, v)``."""
+    from ..ops.blockwise_attention import blockwise_causal_attention
+
+    B, S = x.shape[:2]
+    H, KV, HD = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    h = rmsnorm(x, wl["ln1"], cfg.rms_eps)
+    if ll is None:
+        q, k, v = _project_qkv(h, wl, cfg)  # fused-aware
+    else:
+        q = _split_heads(_proj(h, wl, ll, "wq", lora_scale), H, HD)
+        k = _split_heads(_proj(h, wl, ll, "wk", lora_scale), KV, HD)
+        v = _split_heads(_proj(h, wl, ll, "wv", lora_scale), KV, HD)
+    q = apply_rope(q, positions, inv_freqs)
+    k = apply_rope(k, positions, inv_freqs)
+    if attn_impl == "blockwise":
+        attn = blockwise_causal_attention(q, k, v, attn_mask).reshape(B, S, H * HD)
+    else:
+        attn = _attn_full(q, k, v, mask, cfg)
+    x = x + _proj(attn, wl, ll, "wo", lora_scale)
+    h = rmsnorm(x, wl["ln2"], cfg.rms_eps)
+    if ll is None:
+        return x + _mlp(h, wl, cfg), k, v
+    act = F.silu(_proj(h, wl, ll, "wg", lora_scale)) * _proj(h, wl, ll, "wu", lora_scale)
+    return x + _proj(act, wl, ll, "wd", lora_scale), k, v
+
+
+@torch.no_grad()
+def _write_cache(cache: KVCache, ks, vs, offsets, lanes) -> KVCache:
+    """Write ``(L, B, S, KV, HD)`` keys and values into ``cache`` in place,
+    row ``b`` at lane ``lanes[b]`` from position ``offsets[b]``.  One row
+    is written whole, its start clamped into the cache (as JAX's
+    ``dynamic_update_slice``); several rows drop positions past the end
+    (as JAX's scatter)."""
+    quant = kv_cache_is_quantized(cache)
+    L, B, S = ks.shape[:3]
+    Smax = cache["k"].shape[2 if quant else 3]
+    if quant:
+        kq, ksc = quantize_kv(ks)
+        vq, vsc = quantize_kv(vs)
+        vals = {"k": kq.reshape(L, B, S, -1), "v": vq.reshape(L, B, S, -1),
+                "scale": torch.cat([ksc, vsc], dim=-1)}
+    else:
+        vals = {"k": ks.transpose(2, 3), "v": vs.transpose(2, 3)}  # (L, B, KV, S, HD)
+    for b, (lane, off) in enumerate(zip(lanes.tolist(), offsets.tolist())):
+        n = S
+        if B == 1:
+            off = min(max(off, 0), Smax - S)
+        else:
+            n = max(0, min(S, Smax - off))
+        for name, val in vals.items():
+            if quant:
+                cache[name][:, lane, off:off + n] = val[:, b, :n]
+            else:
+                cache[name][:, lane, :, off:off + n] = val[:, b, :, :n].to(cache[name].dtype)
+    return cache
+
+
+def llama_forward(
+    params: Params,
+    tokens: torch.Tensor,                         # (B, S) int
+    cfg: LlamaConfig,
+    *,
+    positions: Optional[torch.Tensor] = None,     # (B, S); default arange
+    attn_mask: Optional[torch.Tensor] = None,     # (B, S) bool, True = real token
+    cache: Optional[KVCache] = None,              # written in place
+    cache_offset: Optional[torch.Tensor] = None,  # (B,) write offsets
+    cache_slots: Optional[torch.Tensor] = None,   # (B,) cache lanes to write
+    lora: Optional[Params] = None,                # adapters (training/lora.py)
+    lora_scale: float = 1.0,
+    attn_impl: str = "dense",                     # "dense" | "blockwise"
+    remat: bool = False,                          # recompute each layer in the backward
+    return_hidden: bool = False,                  # (B, S, D) normed hidden, no lm head
+    scan_layers: bool = True,
+    accum_stack_grads: bool = False,
+) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """Full-sequence forward (training, and prefill into a cache).
+
+    Returns fp32 logits ``(B, S, padded_vocab)`` (or, with
+    ``return_hidden``, the final normed hidden states for a chunked lm
+    head) and, with ``cache``, the cache holding this sequence's K/V.
+
+    ``params["layers"]`` is the canonical stacked dict or the grouped
+    layout of ``model.bridge.group_layer_params`` (the trainer keeps one
+    group per layer, so each layer's weights are leaves of their own).
+    ``remat`` runs each layer under a non-reentrant
+    ``torch.utils.checkpoint``: only layer inputs stay live for the
+    backward.  Two options of the JAX function exist there for XLA and
+    keep their contract here:
+
+    - ``scan_layers=False`` unrolled the layer loop, because a
+      ``lax.scan`` backward double-buffers its stacked gradient outputs;
+      here the loop is always a Python loop, so it changes nothing;
+    - ``accum_stack_grads`` carried the stacked gradient through a reverse
+      scan (one gradient copy, each layer recomputed); here it is the
+      per-layer recompute over the unbound leaves (``remat``), and, as in
+      JAX, takes neither LoRA, a cache nor the grouped layout.
+    """
+    B, S = tokens.shape
+    dev = tokens.device
+    grouped = isinstance(params["layers"], (list, tuple))
+    if accum_stack_grads and (lora is not None or cache is not None or grouped):
+        raise ValueError("accum_stack_grads is a training path over the canonical stacked "
+                         "layout, without LoRA or a cache")
+    if grouped and (lora is not None or cache is not None):
+        raise ValueError("the grouped layer layout is a training path without LoRA or a cache")
+    remat = remat or accum_stack_grads
+    if positions is None:
+        positions = torch.arange(S, device=dev).expand(B, S)
+    if attn_mask is None:
+        attn_mask = torch.ones((B, S), dtype=torch.bool, device=dev)
+    attn_mask = attn_mask.bool()
+    mask = None
+    if attn_impl != "blockwise":  # blockwise derives causality from positions
+        causal = torch.ones((S, S), dtype=torch.bool, device=dev).tril()
+        mask = causal[None] & attn_mask[:, None, :]
+
+    inv_freqs = rope_inv_freqs(cfg, dev)
+    x = embed_lookup(params["embed"], tokens, params["ln_f"].dtype)
+    layers = _layer_list(params["layers"])
+    adapters = _per_layer(lora["layers"]) if lora is not None else [None] * len(layers)
+    ks, vs = [], []
+    for wl, ll in zip(layers, adapters):
+        args = (x, wl, ll, positions, inv_freqs, attn_mask, mask, cfg, attn_impl, lora_scale)
+        if remat and torch.is_grad_enabled():
+            x, k, v = checkpoint(_train_layer, *args, use_reentrant=False)
+        else:
+            x, k, v = _train_layer(*args)
+        if cache is not None:
+            ks.append(k)
+            vs.append(v)
+    x = rmsnorm(x, params["ln_f"], cfg.rms_eps)
+    out = x if return_hidden else lm_head_logits(params, x)
+    if cache is None:
+        return out, None
+    offsets = cache_offset if cache_offset is not None else torch.zeros(B, dtype=torch.int64)
+    lanes = cache_slots if cache_slots is not None else torch.arange(B)
+    return out, _write_cache(cache, torch.stack(ks), torch.stack(vs), offsets, lanes)
 
 
 # --------------------------------------------------------------------- init

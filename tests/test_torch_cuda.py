@@ -1,7 +1,8 @@
 """Checks that need the card: each CUDA kernel against its plain twin, the
 engine's frame programs replayed from CUDA graphs against the same
-programs run eagerly, and an HF checkpoint directory loaded onto the card
-against the same params passed directly.  This file imports no JAX, so it runs where the port
+programs run eagerly, an HF checkpoint directory loaded onto the card
+against the same params passed directly, train steps on the card against
+the CPU, and the training attention's SDPA path against its twin.  This file imports no JAX, so it runs where the port
 runs (``python -m pytest tests/test_torch_cuda.py`` on a machine with a
 card); everywhere else each test skips.
 
@@ -175,3 +176,77 @@ def test_hf_checkpoint_on_card_matches_direct_params(cuda, tie, tmp_path):
     got, _ = gc.serve_traces(gc.small_engine(cuda, True, loaded, lcfg), 0.0)
     want, _ = gc.serve_traces(gc.small_engine(cuda, True, params, cfg), 0.0)
     assert got == want and all(len(t) == gc.MAX_TOKENS for t in got)
+
+
+@pytest.fixture
+def fp32_exact(cuda):
+    """TF32 off for matmuls and cuDNN while the test runs (fp32 card vs CPU)."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("attn_impl", ["dense", "blockwise"])
+def test_train_steps_card_match_cpu(fp32_exact, attn_impl):
+    """Two ``make_train_step`` steps of a small fp32 model (warmup 1, so
+    one at a nonzero rate) on the card and on the CPU, TF32 off: losses to
+    1e-5 relative, the updates to 1e-3 in relative L2 norm (AdamW amplifies
+    differences in near-zero gradient elements; see
+    ``test_torch_training.py``)."""
+    import numpy as np
+
+    from project_morpheus_tpu_torch.training import pretrain as tp
+
+    cfg = gc.small_config()
+    start = init_llama_params(cfg, 3, "cpu", torch.float32)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(5, cfg.vocab_size, (2, 256)).astype(np.int32)
+    mask = np.ones(ids.shape, bool)
+    mask[1, 180:] = False
+    batch = {"input_ids": ids, "attention_mask": mask, "labels": np.where(mask, ids, -100)}
+    tc = tp.TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10)
+    runs = {}
+    for dev in ("cpu", fp32_exact):
+        params = tp.tree_map(lambda t: t.to(dev, copy=True), start)
+        opt = tp.make_optimizer(tc)
+        state, step = opt.init(params), tp.make_train_step(cfg, opt, attn_impl=attn_impl)
+        runs[str(dev)] = (params, [float(step(params, state, batch)[2]) for _ in range(2)])
+    (pc, lc), (pg, lg) = runs["cpu"], runs[str(fp32_exact)]
+    assert all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(lg, lc))
+    num = den = 0.0
+    for g, c, s in zip(tp.tree_leaves(pg), tp.tree_leaves(pc), tp.tree_leaves(start)):
+        want = c.detach().double() - s.double()
+        num += float(((g.detach().cpu().double() - s.double() - want) ** 2).sum())
+        den += float((want ** 2).sum())
+    assert den > 0 and (num / den) ** 0.5 <= 1e-3
+
+
+@pytest.mark.requires_cuda
+def test_training_attention_card_matches_twin(cuda):
+    """The card's training attention (SDPA under ``SDPA_BACKEND``) against
+    the plain blockwise twin on the card, bf16 at the 3B head shape, right
+    padding and a row whose sequence starts with padding: forward within
+    1e-2 |ref| + 2e-3, dq/dk/dv within 2e-2 of the largest magnitude."""
+    from project_morpheus_tpu_torch.ops import blockwise_attention as ba
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    B, S, H, KV, HD = 2, 1024, 24, 8, 128
+    q, k, v, w = (torch.randn(B, S, h, HD, generator=g, device=cuda).to(torch.bfloat16)
+                  for h in (H, KV, KV, H))
+    mask = torch.ones(B, S, dtype=torch.bool, device=cuda)
+    mask[0, 900:] = False
+    mask[1, :300] = False
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves, mask)
+        return out.detach(), torch.autograd.grad((out.float() * w.float()).sum(), leaves)
+
+    out, grads = run(ba.blockwise_causal_attention)
+    want, wgrads = run(ba.blockwise_attention_twin)
+    err = (out.float() - want.float()).abs()
+    assert torch.all(err <= 1e-2 * want.float().abs() + 2e-3), err.max()
+    for a, b in zip(grads, wgrads):
+        assert (a.float() - b.float()).abs().max() <= 2e-2 * b.float().abs().max()

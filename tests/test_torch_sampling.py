@@ -87,3 +87,41 @@ def test_draws_follow_each_slots_generator():
                              presence=torch.tensor(presence), vocab_size=V)
     nuc = ts.nucleus_logits(pl / temp[:, None], torch.tensor(top_p))
     assert all(torch.isfinite(nuc[i, a[i]]) for i in range(4))
+
+
+@pytest.mark.parametrize("streams", ["one_seed_draws_0_to_n", "n_seeds_at_draw_0"])
+def test_draw_frequencies_follow_nucleus_softmax(streams):
+    """200,000 draws over 64 ids at top_p 0.9 and temperature 0.8, from
+    one seed at draws 0..N-1 or from N seeds at draw 0: the kept ids
+    (equal to a float64 numpy nucleus) hold every draw, and their counts
+    pass a chi-square test against the renormalised nucleus softmax at
+    p > 1e-3."""
+    from scipy.stats import chisquare
+
+    V, N, temp, top_p = 64, 200_000, 0.8, 0.9
+    row = (np.random.default_rng(21).standard_normal(V) * 1.5).astype(np.float32)
+    scaled = row.astype(np.float64) / temp
+    p = np.exp(scaled - scaled.max())
+    p /= p.sum()
+    order = np.argsort(-p)
+    nucleus = np.zeros(V, bool)
+    nucleus[order[:np.searchsorted(np.cumsum(p[order]), top_p) + 1]] = True
+    expected = np.where(nucleus, p, 0.0) / p[nucleus].sum()
+    got_set = ts.nucleus_logits(torch.tensor(row)[None] / temp, torch.tensor([top_p]))
+    np.testing.assert_array_equal(torch.isfinite(got_set[0]).numpy(), nucleus)
+
+    counts = np.zeros(V, np.int64)
+    for lo in range(0, N, 50_000):
+        n = min(50_000, N - lo)
+        span = torch.arange(lo, lo + n, dtype=torch.int64)
+        if streams == "one_seed_draws_0_to_n":
+            seeds, draws = torch.full((n,), 12345, dtype=torch.int64), span
+        else:
+            seeds, draws = span, torch.zeros(n, dtype=torch.int64)
+        tok = ts.sample_logits(torch.tensor(row).expand(n, V), seeds, draws,
+                               temperature=torch.full((n,), temp), top_p=torch.full((n,), top_p),
+                               repetition_penalty=torch.ones(n),
+                               presence=torch.zeros((n, V), dtype=torch.bool), vocab_size=V)
+        counts += np.bincount(tok.numpy(), minlength=V)
+    assert counts[~nucleus].sum() == 0 and counts.sum() == N
+    assert chisquare(counts[nucleus], N * expected[nucleus]).pvalue > 1e-3
