@@ -74,20 +74,44 @@ Phases, each raising on failure (exit code 1, no result lines):
    process under ``torch.use_deterministic_algorithms``: equal losses and
    params; (g) the training CLI as a subprocess; (h) the SNAC encoder,
    card vs CPU in fp32: codes equal except at near-ties.  The training
-   path runs no hand-written kernel; its attention is a library call.
+   path runs no hand-written kernel; its attention is a library call;
+9. the last modules: (a) the native PCM library built with g++; the 3B
+   int8 runtime serves one greedy utterance to the port's ``Client`` over
+   REST and ``/ws/tts``, and through an orchestrator with a PCM ring, with
+   ``ORPHEUS_NATIVE_PCM`` unset and set: the PCM, the ring's bytes and the
+   served hops stitched with a 10 ms crossfade must be equal; the
+   orchestrator's timeline replays to the ring's PCM; the watermark
+   embedded in six served utterances is detected with its key only;
+   (b) on a world of one over NCCL, the 3B int8 engine on a 1 x 1 mesh,
+   its collectives captured in CUDA graphs: phase 4's seeded traces must
+   equal the unsharded engine's; (c) two ranks on the one card over gloo
+   (``tp2_main``), Orpheus-3B at full width, int8 weights and KV, tp = 2,
+   the slot kernel on each rank's 4 kv heads: every sharded GEMV shape and
+   the slot kernel against their twins, one decode step's logits against
+   the unsharded step's (``MESH_LOGIT_TOL``) and, closely
+   (``MESH_TP_REF_TOL``), against the unsharded step computing each
+   product and the attention at the ranks' shapes (``_tp_arithmetic``), while a planted fault (rank 1's wo scales x ``MESH_FAULT``) must
+   exceed that limit; four greedy requests of 84
+   tokens against the unsharded engine's (agreement and first divergence,
+   reported), ms a step; (d) Orpheus-3B at seq 8192, phase 8's seed and
+   batches, 2 steps of ``train_loop`` on a 1 x 1 mesh in ``fsdp`` and
+   ``fsdp_tp``: losses equal to phase 8's; (e) the training CLI under
+   ``torchrun --nproc_per_node 1``, run beside (c) and (d).
 
 Kernel launch counts are zeroed just before the first run of phase 4 (the
-main path), just before phase 5 and just before phase 7's first seeded
-load, and read just after each; launches inside replayed
+main path), just before phase 5, just before phase 7's first seeded
+load and just before phase 9's mesh engine (b) and each rank's TP engine
+(c), and read just after each; launches inside replayed
 CUDA graphs are counted through each graph's tally.  The last lines are the
 GEMV's device ms a frame in the k=1 serving load, the card's name and power
-limit, one JSON line describing every kernel, and
+limit, one JSON line describing every kernel (this slice adds none), and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout of the repository, it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import math
 import os
@@ -1339,6 +1363,7 @@ def phase_train_3b(torch, np, card: str):
     if len(losses) != 6 or not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[1]:
         raise AssertionError(f"3B training losses {losses}")
     step_s = (logs[-1]["elapsed_s"] - logs[0]["elapsed_s"]) / 5
+    TRAIN_3B.update(losses=losses, ms_step=1e3 * step_s)
     n_mm = matmul_params(cfg)
     attn = 2 * TRAIN_SEQ**2 * cfg.head_dim * cfg.num_heads * cfg.num_layers
     flops = 6 * n_mm * TRAIN_SEQ + 3 * attn
@@ -1629,6 +1654,634 @@ def phase_training(card: str) -> None:
     phase_snac_encoder(torch, np, card)
 
 
+# ------------------------------------------------------------ phase 9
+
+NATIVE_TEXT = "The native library joins these hops."
+NATIVE_TOKENS = 7 * 24    # 24 hops: ~2 s of audio, enough for the watermark's z > 5
+MESH_TOKENS = 84          # greedy tokens a request of the two-rank engine (12 frames)
+MESH_SEQ = 1024           # its cache positions
+MESH_LOGIT_TOL = 5e-2     # max |tp - unsharded| / max |unsharded| of one step's logits
+# max |tp - reference| / max |unsharded|, the reference being the unsharded
+# step computed at the ranks' shapes and sums (_tp_arithmetic)
+MESH_TP_REF_TOL = 1e-3
+MESH_FAULT = 1.01         # the planted fault: rank 1's wo scales times this
+WATERMARK_KEY = (7, 3, 11, 5, 13)
+# six utterances (the last five served at once): the watermark (-36 dB) needs
+# ~200k samples for z > 5 on random-weight audio (z 3.2 on one 24-hop one)
+WATERMARK_TEXTS = (NATIVE_TEXT, "Six streams share the engine.", "Marks hide under the signal.",
+                   "Correlation finds the key.", "Random weights still make audio.",
+                   "The last of six sentences.")
+TRAIN_3B = {}             # phase 8's 3B losses, for phase 9 (d)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+async def served_by_client(base: str, more: bool):
+    """One ``POST /v1/audio/speech`` and one ``/ws/tts`` utterance through
+    the port's ``Client``, then, with ``more``, the rest of
+    ``WATERMARK_TEXTS`` at once: (REST body, WS PCM, [more REST bodies])."""
+    from project_morpheus_tpu_torch.server import Client
+
+    client = Client(base)
+
+    async def rest(text):
+        return b"".join([c async for c in client.stream_rest(text, voice="tara")])
+
+    body = await rest(NATIVE_TEXT)
+    ws = b"".join([f async for f in client.stream_ws(NATIVE_TEXT, voice="tara")])
+    others = await asyncio.gather(*[rest(t) for t in WATERMARK_TEXTS[1:]]) if more else []
+    return body, ws, list(others)
+
+
+async def orchestrated(events: list):
+    """The same utterance pulled through an orchestrator with a PCM ring,
+    its timeline events collected: (ring contents, ring on the library?)."""
+    from project_morpheus_tpu_torch.adapters.local_torch import LocalTorchAdapter
+    from project_morpheus_tpu_torch.model.sampling import SamplingParams
+    from project_morpheus_tpu_torch.orchestrator import (
+        ChunkLadder, Orchestrator, PlaybackBuffer, RingBuffer)
+
+    ring = RingBuffer(1 << 20, 24_000)
+    adapter = LocalTorchAdapter(NATIVE_TEXT, sampling=SamplingParams(
+        temperature=0.0, max_tokens=NATIVE_TOKENS))
+    orch = Orchestrator(adapter, PlaybackBuffer(capacity_ms=1000.0), ChunkLadder(), ring=ring)
+    async for _ in orch.stream(on_event=events.append):
+        pass
+    return ring.read(len(ring)), ring._native is not None
+
+
+async def stitched_hops(pcm: bytes, hop_bytes: int) -> bytes:
+    """``pcm``'s hops joined by the stitcher with a 10 ms crossfade."""
+    from project_morpheus_tpu_torch.orchestrator import AudioChunk, stitch_chunks
+
+    async def hops():
+        for i in range(0, len(pcm), hop_bytes):
+            yield AudioChunk(pcm=pcm[i:i + hop_bytes], duration_ms=0.0,
+                             eos=i + hop_bytes >= len(pcm))
+
+    return b"".join([c.pcm async for c in stitch_chunks(hops(), sample_rate=24_000,
+                                                       overlap_ms=10.0)])
+
+
+async def phase_native_client(card: str, np) -> None:
+    """9 (a): the native PCM library, the client, replay and watermark on
+    the 3B int8 runtime."""
+    from aiohttp import web
+
+    from project_morpheus_tpu_torch import native
+    from project_morpheus_tpu_torch.adapters import runtime as rt
+    from project_morpheus_tpu_torch.server import create_app
+    from project_morpheus_tpu_torch.tools.profile_serving import serving_runtime
+    from project_morpheus_tpu_torch.utils import replay, watermark
+
+    t0 = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t0
+    runtime = serving_runtime()
+    fs = runtime.snac_cfg.frame_samples
+    workdir = Path(tempfile.mkdtemp(prefix="orpheus_native_"))
+    got = {}
+    try:
+        for flag in ("", "1"):
+            os.environ[native.FLAG] = flag
+            runner = web.AppRunner(create_app(generation={"temperature": 0.0,
+                                                          "max_tokens": NATIVE_TOKENS}))
+            await runner.setup()
+            site = web.TCPSite(runner, "127.0.0.1", 0)
+            await site.start()
+            try:
+                rest, ws, others = await served_by_client(
+                    f"http://127.0.0.1:{site._server.sockets[0].getsockname()[1]}", not flag)
+            finally:
+                await runner.cleanup()
+            events = []
+            ring, on_lib = await orchestrated(events)
+            got[flag] = dict(rest=rest, others=others, ws=ws,
+                             stitched=await stitched_hops(rest[44:], 2 * fs),
+                             ring=ring, on_lib=on_lib, events=events)
+    finally:
+        os.environ.pop(native.FLAG, None)
+    off, on = got[""], got["1"]
+    if off["on_lib"] or not on["on_lib"]:
+        raise AssertionError(f"ring on the library: flag unset {off['on_lib']}, set {on['on_lib']}")
+    rest = off["rest"]
+    if rest[:4] != b"RIFF" or rest[44:] != off["ws"]:
+        raise AssertionError("REST and /ws/tts PCM differ for the same greedy utterance")
+    check_pcm(np, rest[44:], NATIVE_TOKENS // 7, 2 * fs, "client REST")
+    if len(on["stitched"]) != len(rest) - 44 - 2 * 240 * (NATIVE_TOKENS // 7 - 1):
+        raise AssertionError(f"stitched {len(on['stitched'])} bytes of {len(rest) - 44}")
+    if on["ring"] != rest[44:]:
+        raise AssertionError("the orchestrator's ring holds other PCM than the server sent")
+    for key in ("rest", "ws", "stitched", "ring"):
+        if off[key] != on[key]:
+            raise AssertionError(f"{key}: PCM differs with ORPHEUS_NATIVE_PCM=1")
+    log(f"native (a): pcm_ops built with g++ in {build_s:.2f} s (0 if it was built already); "
+        f"Client REST {len(rest) - 44} and "
+        f"/ws/tts {len(off['ws'])} PCM bytes, equal; orchestrator ring {len(on['ring'])} bytes "
+        f"and its hops stitched with a 10 ms crossfade, {len(on['stitched'])} bytes: equal with "
+        f"ORPHEUS_NATIVE_PCM=1 (ring and crossfade on the C++ library) and without [{card}]")
+
+    log_path = workdir / "timeline.jsonl"
+    log_path.write_text("".join(json.dumps(e) + "\n" for e in on["events"]))
+    n = replay.replay_to_wav(log_path, workdir / "replay.wav", 24_000)
+    import wave
+
+    with wave.open(str(workdir / "replay.wav")) as wf:
+        frames = wf.readframes(wf.getnframes())
+    shutil.rmtree(workdir, ignore_errors=True)
+    if frames != on["ring"] or n != len(frames):
+        raise AssertionError(f"replayed timeline: {n} bytes, the ring held {len(on['ring'])}")
+    for body in off["others"]:
+        check_pcm(np, body[44:], NATIVE_TOKENS // 7, 2 * fs, "client REST, concurrent")
+    pcm = np.frombuffer(b"".join(b[44:] for b in [rest, *off["others"]]), np.int16)
+    marked = watermark.embed(pcm, WATERMARK_KEY)
+    z, z_other, z_clean = (watermark.detect(marked, WATERMARK_KEY),
+                           watermark.detect(marked, watermark.DEFAULT_KEY),
+                           watermark.detect(pcm, WATERMARK_KEY))
+    if not watermark.verify(marked, WATERMARK_KEY) or watermark.verify(pcm, WATERMARK_KEY) \
+            or watermark.verify(marked, watermark.DEFAULT_KEY):
+        raise AssertionError(f"watermark: detect {z:.2f} with the key, {z_other:.2f} with "
+                             f"another, {z_clean:.2f} unmarked (threshold 5)")
+    rms, peak = native.meter(pcm)
+    v = np.abs(pcm.astype(np.float64)) / 32768.0
+    if abs(rms - float(np.sqrt(np.mean(v * v)))) > 1e-12 or peak != float(v.max()):
+        raise AssertionError("native meter differs from numpy")
+    log(f"native (a): timeline of {len(on['events'])} events replayed to {n} PCM bytes, equal to "
+        f"the ring's; watermark on {len(WATERMARK_TEXTS)} served utterances "
+        f"({pcm.size} samples): detect {z:.2f} with the key, {z_other:.2f} "
+        f"with another, {z_clean:.2f} unmarked (threshold 5); meter rms {rms:.4f} peak "
+        f"{peak:.4f} equal to numpy [{card}]")
+    await runtime.engine.close()
+    rt.set_runtime(None)
+
+
+async def phase_mesh_serving(card: str, torch, records) -> None:
+    """9 (b): the 3B int8 engine on a 1 x 1 mesh over NCCL, CUDA graphs
+    with the collectives captured: phase 4's seeded traces must equal the
+    unsharded engine's."""
+    from project_morpheus_tpu_torch.adapters import runtime as rt
+    from project_morpheus_tpu_torch.engine import OrpheusEngine
+    from project_morpheus_tpu_torch.ops import decode_attention as da
+    from project_morpheus_tpu_torch.ops import int8_gemv as ig
+    from project_morpheus_tpu_torch.parallel import make_mesh
+    from project_morpheus_tpu_torch.parallel.mesh import STATE
+    from project_morpheus_tpu_torch.tools.profile_serving import (
+        PROMPTS, TOKENS_PER_REQUEST, serving_runtime)
+
+    mesh = make_mesh(1, 1)
+    if STATE.backend != "nccl" or mesh.group("model") is None:
+        raise AssertionError(f"world of one: backend {STATE.backend}, groups {mesh.groups}")
+    runtime = serving_runtime()
+    base = runtime.engine
+    seeds = [100 + i for i in range(len(PROMPTS))]
+    _, wall_b, ref = await serve(list(PROMPTS), TOKENS_PER_REQUEST, seeds)
+    mesh_eng = OrpheusEngine(base.params, base.cfg, base.ecfg, codec=base._codec, mesh=mesh,
+                             device="cuda")
+    runtime.engine = mesh_eng
+    da.reset_launch_counts()
+    ig.reset_launch_counts()
+    torch.cuda.synchronize()
+    _, wall_m, got = await serve(list(PROMPTS), TOKENS_PER_REQUEST, seeds)
+    torch.cuda.synchronize()
+    launches = {**da.LAUNCHES, **ig.LAUNCHES}
+    if got != ref or any(len(t) == 0 for t in ref):
+        where = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+                 for a, b in zip(ref, got)]
+        raise AssertionError(f"mesh engine traces differ from the unsharded engine's: {where}")
+    if mesh_eng.programs.captures == 0 or mesh_eng.programs.replays == 0:
+        raise AssertionError("the mesh engine over NCCL captured or replayed no CUDA graph")
+    if launches["decode_attention_int8_slots"] <= 0 or launches["int8_gemv"] <= 0:
+        raise AssertionError(f"mesh engine launches {launches}")
+    records[0]["mesh_launches"] = launches["decode_attention_int8_slots"]
+    records[2]["mesh_launches"] = launches["int8_gemv"]
+    log(f"mesh (b): 3B int8 engine on a 1 x 1 mesh over {STATE.backend} (world of one, "
+        f"collectives in the {mesh_eng.programs.captures} captured graphs, "
+        f"{mesh_eng.programs.replays} replays): phase 4's 4 seeded traces "
+        f"({sum(map(len, got))} tokens) equal the unsharded engine's; {wall_m:.2f} s vs "
+        f"{wall_b:.2f} s unsharded (graphs captured on first use in both); launches {launches} "
+        f"[{card}]")
+    await mesh_eng.close()
+    runtime.engine = base
+    await base.close()
+    rt.set_runtime(None)
+
+
+@contextlib.contextmanager
+def _tp_arithmetic(params, tp: int = 2):
+    """The unsharded model computing each product as ``tp`` ranks do, cut
+    from the whole weights here (not by ``parallel/``): q/k/v, gate and up
+    by output-column blocks, the tied lm head by vocab-row blocks, each
+    block through the same product at the rank's shape and the blocks
+    joined; o and down by input-row blocks, each through the same product
+    (bf16 out) and the blocks added in fp32 and cast back
+    (``parallel/tensor.py: reduce``); the decode kernel and the prefill
+    attention over each rank's block of kv heads.  Patches the functions
+    ``model/llama.py`` and ``model/quant.py`` call, for the storages of
+    ``params`` only."""
+    import torch
+
+    from project_morpheus_tpu_torch.model import llama, quant
+
+    def ptrs(*names):
+        return {params["layers"][n]["q"].untyped_storage().data_ptr() for n in names}
+
+    cols, rows = ptrs("wq", "wk", "wv", "wg", "wu"), ptrs("wo", "wd")
+    head = params["embed"]["q"].untyped_storage().data_ptr()
+    blocks = lambda n: [slice(r * n // tp, (r + 1) * n // tp) for r in range(tp)]  # noqa: E731
+
+    def product(f):
+        def cut(h, q, scale, *args, **kwargs):
+            ptr = q.untyped_storage().data_ptr()
+            if kwargs.get("k_major") and ptr == head:  # (Vp, D): vocab rows
+                return torch.cat([f(h, q[b], scale[b], *args, **kwargs)
+                                  for b in blocks(q.shape[0])], -1)
+            if ptr in cols:
+                return torch.cat([f(h, q[:, b].contiguous(), scale[..., b].contiguous(), *args,
+                                    **kwargs) for b in blocks(q.shape[1])], -1)
+            if ptr in rows:
+                parts = [f(h[..., b].contiguous(), q[b], scale, *args, **kwargs)
+                         for b in blocks(q.shape[0])]
+                return sum(p.float() for p in parts).to(parts[0].dtype)
+            return f(h, q, scale, *args, **kwargs)
+        return cut
+
+    def slot_kernel(q0, k, v, scale, live, layer):
+        B, H, HD = q0.shape
+        KV = k.shape[-1] // HD
+        one = slice(layer, layer + 1)
+        out = []
+        for hb, kb in zip(blocks(H), blocks(KV)):
+            dims = slice(kb.start * HD, kb.stop * HD)
+            sc = scale[one]
+            sc = torch.cat([sc[..., kb], sc[..., KV + kb.start:KV + kb.stop]], -1)
+            out.append(saved_slot(q0[:, hb].contiguous(), k[one, ..., dims].contiguous(),
+                                  v[one, ..., dims].contiguous(), sc.contiguous(), live, 0))
+        return torch.cat(out, 1)
+
+    def chunk_attn(qg, k_s, v_s, ks_s, vs_s, *args, **kwargs):
+        return torch.cat([saved_chunk(
+            qg[:, b].contiguous(), k_s[b], v_s[b], None if ks_s is None else ks_s[b],
+            None if vs_s is None else vs_s[b], *args, **kwargs)
+            for b in blocks(qg.shape[1])], -1)
+
+    saved = quant.int8_gemv, quant.dequant_matmul
+    saved_slot, saved_chunk = llama.decode_attention_int8_slots, llama._chunk_streaming_attn
+    quant.int8_gemv, quant.dequant_matmul = (product(f) for f in saved)
+    llama.decode_attention_int8_slots, llama._chunk_streaming_attn = slot_kernel, chunk_attn
+    try:
+        yield
+    finally:
+        quant.int8_gemv, quant.dequant_matmul = saved
+        llama.decode_attention_int8_slots, llama._chunk_streaming_attn = saved_slot, saved_chunk
+
+
+def tp2_main(device: str = "cuda", cfg=None) -> int:
+    """One rank of phase 9 (c): ``RANK``, ``WORLD_SIZE`` 2 and
+    ``TP2_STORE`` / ``TP2_OUT`` set by :func:`phase_tp2`; both ranks on the
+    one card over gloo.  Writes its result JSON to ``TP2_OUT``.rank.
+    ``device="cpu"`` with a small ``cfg`` (or its fields as JSON in
+    ``TP2_CFG``) rehearses it on the CPU (the kernels' plain twins run
+    there)."""
+    import torch
+
+    from project_morpheus_tpu_torch.engine import EngineConfig, OrpheusEngine
+    from project_morpheus_tpu_torch.model import LlamaConfig
+    from project_morpheus_tpu_torch.model.llama import (
+        init_kv_cache, init_llama_params, llama_decode_step, llama_prefill_chunk)
+    from project_morpheus_tpu_torch.model.quant import quantize_params_int8
+    from project_morpheus_tpu_torch.model.sampling import SamplingParams
+    from project_morpheus_tpu_torch.model.tokenizer import format_prompt_ids
+    from project_morpheus_tpu_torch.ops import build, decode_attention as da, int8_gemv as ig
+    from project_morpheus_tpu_torch.parallel import initialize_distributed, make_mesh
+    from project_morpheus_tpu_torch.parallel.mesh import STATE
+    from project_morpheus_tpu_torch.parallel.tensor import NO_TP
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    initialize_distributed(f"file://{os.environ['TP2_STORE']}", 2, rank, device=device,
+                           timeout_s=300)
+    mesh = make_mesh(1, 2)
+    if device == "cuda":
+        build.build_all()
+    if cfg is None:
+        fields = os.environ.get("TP2_CFG")
+        cfg = LlamaConfig(**json.loads(fields)) if fields else LlamaConfig.orpheus_3b()
+    full = quantize_params_int8(init_llama_params(cfg, 17, device, torch.bfloat16))
+    prompts = [format_prompt_ids(p, "tara") for p in CKPT_PROMPTS]
+    ecfg = EngineConfig(max_slots=4, max_seq_len=MESH_SEQ, cache_dtype="int8",
+                        attn_impl="kernel", default_stop_ids=())
+    eng = OrpheusEngine(full, cfg, ecfg, mesh=mesh, device=device)
+    out = {"rank": rank, "backend": STATE.backend, "graphs": eng.programs.graphs}
+
+    # every sharded GEMV shape, M = 1 and 4, and the slot kernel at 4 kv heads
+    lp, shapes = eng.params["layers"], {}
+    for name in ("wq", "wk", "wv", "wo", "wg", "wu", "wd"):
+        q, sc = lp[name]["q"][0], lp[name]["scale"][0]
+        for m in (1, 4):
+            h = torch.randn(m, q.shape[0], device=device).to(torch.bfloat16)
+            shapes[f"{name} {tuple(q.shape)} M={m}"] = check_close(
+                ig.int8_gemv(h, q, sc), ig.int8_gemv_plain(h, q, sc).float(), f"gemv {name}")
+    emb = eng.params["embed"]
+    for m in (1, 4):
+        h = torch.randn(m, emb["q"].shape[1], device=device).to(torch.bfloat16)
+        want = ig.int8_gemv_plain(h, emb["q"], emb["scale"], k_major=True)
+        err = (ig.int8_gemv(h, emb["q"], emb["scale"], k_major=True) - want).abs()
+        if bool((err > 1e-2 * want.abs() + 2e-3).any()):
+            raise AssertionError(f"gemv lm_head shard: max err {err.max().item():.3e}")
+        shapes[f"lm_head (N, K) {tuple(emb['q'].shape)} M={m}"] = err.max().item()
+    out["gemv"] = shapes
+
+    # one decode step of four slots, sharded vs unsharded (rank 0 holds both)
+    def step(params, tp, ccfg):
+        cache = init_kv_cache(ccfg, 4, MESH_SEQ, torch.int8, device)
+        for slot, ids in enumerate(prompts):
+            toks = torch.zeros(64, dtype=torch.int32, device=device)
+            toks[:len(ids)] = torch.tensor(ids, device=device)
+            llama_prefill_chunk(params, toks, cfg, cache, 0, slot, len(ids), hist_bucket=256,
+                                tp=tp)
+        lengths = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=device)
+        toks = torch.tensor([p[-1] for p in prompts], dtype=torch.int32, device=device)
+        return llama_decode_step(params, toks, cfg, cache, lengths, attn_impl="kernel",
+                                 tp=tp), cache, lengths + 1
+
+    local_cfg = eng.tp.local_cfg(cfg)
+    logits, cache, live = step(eng.params, eng.tp, local_cfg)
+    q0 = torch.randn(4, cfg.num_heads // 2, cfg.head_dim, device=device).to(torch.bfloat16)
+    out["slot_kernel"] = check_close(
+        da.decode_attention_int8_slots(q0, cache["k"], cache["v"], cache["scale"], live,
+                                       cfg.num_layers - 1),
+        da.decode_attention_int8_slots_plain(q0, cache["k"], cache["v"], cache["scale"], live,
+                                             cfg.num_layers - 1).float(), "slot kernel, 4 kv heads")
+    out["slot_kernel_shape"] = list(cache["k"].shape)
+    del cache
+    # the planted fault: the same step with rank 1's wo scales off by MESH_FAULT
+    wo_scale = eng.params["layers"]["wo"]["scale"]
+    kept = wo_scale.clone()
+    if rank == 1:
+        wo_scale.mul_(MESH_FAULT)
+    faulty, _, _ = step(eng.params, eng.tp, local_cfg)
+    wo_scale.copy_(kept)
+    if rank == 0:
+        ref, _, _ = step(full, NO_TP, cfg)
+        with _tp_arithmetic(full):
+            tp_ref, _, _ = step(full, NO_TP, cfg)
+        top = ref.abs().max().item()
+
+        def rel(a, b):
+            return (a - b).abs().max().item() / top
+
+        out["logits_err"], out["logits_max"] = (logits - ref).abs().max().item(), top
+        out["argmax_equal"] = int((logits.argmax(-1) == ref.argmax(-1)).sum())
+        out["tp_ref_err"] = rel(logits, tp_ref)         # tp vs the tp-arithmetic reference
+        out["tp_ref_vs_ref"] = rel(tp_ref, ref)         # what the ranks' arithmetic moves
+        out["fault_err"] = rel(faulty, tp_ref)          # the planted fault vs the reference
+        out["fault_vs_ref"] = rel(faulty, ref)
+
+    async def run_engine(engine):
+        reqs = [await engine.submit(p, SamplingParams(temperature=0.0, max_tokens=MESH_TOKENS,
+                                                      stop_token_ids=())) for p in prompts]
+        traces = [[t async for t in r.tokens()] for r in reqs]
+        await engine.close()
+        return traces
+
+    da.reset_launch_counts()
+    ig.reset_launch_counts()
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    traces = asyncio.run(run_engine(eng))
+    sync()
+    wall = time.perf_counter() - t0
+    out.update(traces=traces, steps=eng.steps, wall=wall,
+               launches={**da.LAUNCHES, **ig.LAUNCHES})
+    if rank == 0:
+        ref_eng = OrpheusEngine(full, cfg, ecfg, device=device)
+        out["ref_traces"] = asyncio.run(run_engine(ref_eng))
+    Path(f"{os.environ['TP2_OUT']}.{rank}").write_text(json.dumps(out))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_tp2(card: str, records, device: str = "cuda", cfg=None,
+              timeout_s: float = 400.0) -> dict:
+    """9 (c): two ranks on the one card over gloo, Orpheus-3B at full width,
+    int8 weights and KV, tp = 2, the slot kernel on each rank's heads.
+    ``device="cpu"`` with a small ``cfg`` runs the same checks on the CPU,
+    without the kernels' launch counts.  Returns rank 0's readings."""
+    import dataclasses
+
+    workdir = Path(tempfile.mkdtemp(prefix="orpheus_tp2_"))
+    here = str(Path(__file__).resolve().parent)
+    env = {k: v for k, v in os.environ.items() if k not in ("MASTER_ADDR", "MASTER_PORT")}
+    env.update(WORLD_SIZE="2", LOCAL_WORLD_SIZE="2", TP2_STORE=str(workdir / "store"),
+               TP2_OUT=str(workdir / "out"),
+               PYTHONPATH=os.pathsep.join(filter(None, (here, env.get("PYTHONPATH")))))
+    if cfg is not None:
+        env["TP2_CFG"] = json.dumps(dataclasses.asdict(cfg))
+    logs = [open(workdir / f"rank{r}.log", "w") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", "import sys, chip_smoke; "
+                               f"sys.exit(chip_smoke.tp2_main({device!r}))"],
+                              env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+                              stdout=logs[r], stderr=subprocess.STDOUT, cwd=here)
+             for r in range(2)]
+    try:
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() not in (None, 0) for p in procs)
+                    or time.perf_counter() - t0 > timeout_s):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    secs = time.perf_counter() - t0
+    try:
+        if any(p.returncode != 0 for p in procs):
+            tails = "\n".join(f"rank {r} (rc {p.returncode}):\n"
+                              f"{(workdir / f'rank{r}.log').read_text()[-3000:]}"
+                              for r, p in enumerate(procs))
+            raise AssertionError(f"two-rank TP run failed after {secs:.0f} s:\n{tails}")
+        res = [json.loads(Path(f"{workdir}/out.{r}").read_text()) for r in range(2)]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    r0 = res[0]
+    if r0["traces"] != res[1]["traces"] or any(r["backend"] != "gloo" or r["graphs"] for r in res):
+        raise AssertionError(f"ranks disagree or ran graphs/backend wrongly: "
+                             f"{[(r['backend'], r['graphs']) for r in res]}")
+    rel = r0["logits_err"] / r0["logits_max"]
+    if not rel <= MESH_LOGIT_TOL:
+        raise AssertionError(f"tp=2 decode logits vs unsharded: max err {r0['logits_err']:.4e} "
+                             f"of max |logit| {r0['logits_max']:.4e} (limit {MESH_LOGIT_TOL})")
+    if not r0["tp_ref_err"] <= MESH_TP_REF_TOL < r0["fault_err"]:
+        raise AssertionError(
+            f"tp=2 logits vs the tp-arithmetic reference {r0['tp_ref_err']:.3e}, a planted "
+            f"fault (rank 1's wo scales x{MESH_FAULT}) {r0['fault_err']:.3e}: the limit "
+            f"{MESH_TP_REF_TOL} must lie between the two")
+    agree, firsts = [], []
+    for a, b in zip(r0["traces"], r0["ref_traces"]):
+        if len(a) != MESH_TOKENS or len(b) != MESH_TOKENS:
+            raise AssertionError(f"greedy traces of {len(a)} / {len(b)} tokens")
+        agree.append(sum(x == y for x, y in zip(a, b)))
+        firsts.append(next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None))
+    for r in res:
+        if device == "cuda" and (r["launches"]["decode_attention_int8_slots"] <= 0
+                                 or r["launches"]["int8_gemv"] <= 0):
+            raise AssertionError(f"rank {r['rank']} launches {r['launches']}")
+    records[0]["tp2_launches_a_rank"] = r0["launches"]["decode_attention_int8_slots"]
+    records[2]["tp2_launches_a_rank"] = r0["launches"]["int8_gemv"]
+    gemv = ", ".join(f"{k} {v:.2e}" for k, v in r0["gemv"].items())
+    log(f"tp2 (c): 2 ranks on one card over gloo (host-staged collectives, frame programs "
+        f"eager), {'Orpheus-3B full width' if cfg is None else cfg}, int8 weights and KV, tp=2, slot kernel on 4 kv heads "
+        f"a rank; run {secs:.1f} s with start-up")
+    log(f"  decode step logits tp=2 vs unsharded (4 slots): max abs err {r0['logits_err']:.4e}, "
+        f"{rel:.2e} of max |logit| {r0['logits_max']:.3f} (limit {MESH_LOGIT_TOL}); argmax "
+        f"equal in {r0['argmax_equal']} of 4 slots [{card}]")
+    log(f"  the same vs the tp-arithmetic reference (unsharded, each product and the attention "
+        f"at the ranks' shapes, wo / wd halves added in fp32): {r0['tp_ref_err']:.4e} of max "
+        f"|logit| (limit {MESH_TP_REF_TOL}); the reference vs unsharded "
+        f"{r0['tp_ref_vs_ref']:.4e}; a planted fault, rank 1's wo scales "
+        f"x{MESH_FAULT}: {r0['fault_err']:.4e} vs the reference, {r0['fault_vs_ref']:.4e} vs "
+        f"unsharded [{card}]")
+    log(f"  4 greedy requests x {MESH_TOKENS} tokens: tokens equal to the unsharded engine's "
+        f"{agree} (first divergence at {firsts}); ranks identical; "
+        f"{1e3 * r0['wall'] / max(r0['steps'], 1):.1f} ms a step over {r0['steps']} steps "
+        f"(eager and host-staged: a smoke number) [{card}]")
+    log(f"  rank 0 kernels vs twins: GEMV shard shapes max abs err {gemv}; slot kernel on the "
+        f"rank's cache {r0['slot_kernel_shape']} max abs err {r0['slot_kernel']:.2e}; launches "
+        f"in the TP engine run rank 0 {r0['launches']}, rank 1 {res[1]['launches']} [{card}]")
+    return r0
+
+
+def phase_mesh_training(card: str, np, torch) -> None:
+    """9 (d): Orpheus-3B, seq 8192, batch 1, phase 8's seed and batches,
+    2 steps of ``train_loop`` on a 1 x 1 mesh over NCCL in ``fsdp`` and
+    ``fsdp_tp``: losses equal to the single-device trainer's."""
+    import gc
+
+    from project_morpheus_tpu_torch.model import LlamaConfig
+    from project_morpheus_tpu_torch.model.llama import init_llama_params
+    from project_morpheus_tpu_torch.parallel import make_mesh
+    from project_morpheus_tpu_torch.training.pretrain import TrainConfig, train_loop
+
+    cfg = LlamaConfig.orpheus_3b()
+    ex = train_example(np, cfg, TRAIN_SEQ, 13)
+    batches = [{"kind": ("text", "audio")[i % 2], "examples": [ex]} for i in range(2)]
+    tc = TrainConfig(seq_len=TRAIN_SEQ, warmup_steps=1, log_every=1)  # phase 8's
+    want = TRAIN_3B["losses"][:2]
+    mesh = make_mesh(1, 1)
+    for mode in ("fsdp", "fsdp_tp"):
+        params = init_llama_params(cfg, 13, "cuda", torch.bfloat16)
+        logs = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trained, _ = train_loop(params, cfg, iter(batches), tc=tc, mesh=mesh, shard_mode=mode,
+                                log=logs.append)
+        torch.cuda.synchronize()
+        del params, trained
+        gc.collect()
+        torch.cuda.empty_cache()
+        losses = [r.get("text_loss", r.get("audio_loss")) for r in logs]
+        if losses != want:
+            raise AssertionError(f"mesh training {mode}: losses {losses}, single device {want}")
+        log(f"mesh (d) train Orpheus-3B seq 8192 batch 1 on a 1 x 1 mesh over NCCL, {mode}: "
+            f"losses {losses} equal to the single-device trainer's; step 2 "
+            f"{1e3 * (logs[1]['elapsed_s'] - logs[0]['elapsed_s']):.1f} ms (single device "
+            f"{TRAIN_3B['ms_step']:.1f} ms/step over steps 2-6); peak allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+
+
+def start_torchrun_cli():
+    """9 (e): start the training CLI under ``torchrun --nproc_per_node 1``
+    in the background; :func:`finish_torchrun_cli` checks it."""
+    workdir = Path(tempfile.mkdtemp(prefix="orpheus_torchrun_"))
+    for name, seed in (("text", 0), ("audio", 1)):
+        rows = [[(seed * 7919 + i * 104729 + j * 31) % 1000 + 1 for j in range(16)]
+                for i in range(16)]
+        (workdir / f"{name}.jsonl").write_text(
+            "".join(json.dumps({"input_ids": ids}) + "\n" for ids in rows))
+    (workdir / "cfg.yaml").write_text(
+        f"model_size: tiny_vocab\ntext_data: {workdir}/text.jsonl\naudio_data: "
+        f"{workdir}/audio.jsonl\nbatch_size: 4\ntotal_steps: 4\nseq_length: 16\n"
+        f"learning_rate: 1e-3\nwarmup_steps: 1\ncheckpoint_dir: {workdir}/ckpt\n")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")}
+    proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                             "--nproc_per_node", "1", "-m", "project_morpheus_tpu_torch.training",
+                             "pretrain", "--config", str(workdir / "cfg.yaml")],
+                            stdout=open(workdir / "out.txt", "w"),
+                            stderr=open(workdir / "err.txt", "w"), env=env)
+    return proc, workdir, time.perf_counter()
+
+
+def finish_torchrun_cli(card: str, started) -> None:
+    proc, workdir, t0 = started
+    try:
+        try:
+            rc = proc.wait(timeout=max(1.0, 300 - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise AssertionError("torchrun CLI: still running after 300 s")
+        secs = time.perf_counter() - t0
+        out = (workdir / "out.txt").read_text()
+        logs = [json.loads(l) for l in out.splitlines() if l.startswith("{")]
+        if rc != 0 or not any("text_loss" in r for r in logs) or \
+                not (workdir / "ckpt" / "step_4" / "params.safetensors").exists():
+            raise AssertionError(f"torchrun CLI: rc {rc}\n{out[-2000:]}\n"
+                                 f"{(workdir / 'err.txt').read_text()[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"mesh (e) torchrun --nproc_per_node 1 -m project_morpheus_tpu_torch.training pretrain "
+        f"(a 1 x 1 mesh, fsdp, NCCL; run beside (c) and (d)): exited 0 after {secs:.1f} s, "
+        f"logged {logs[0]}, saved step_4 [{card}]")
+
+
+def phase_parallel(card: str, records) -> None:
+    """Phase 9 (see the module docstring)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from project_morpheus_tpu_torch.parallel import initialize_distributed, shutdown_distributed
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    asyncio.run(phase_native_client(card, np))
+    initialize_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    cli = None
+    try:
+        asyncio.run(phase_mesh_serving(card, torch, records))
+        gc.collect()
+        torch.cuda.empty_cache()
+        cli = start_torchrun_cli()
+        phase_tp2(card, records)
+        phase_mesh_training(card, np, torch)
+        finish_torchrun_cli(card, cli)
+    finally:
+        if cli is not None and cli[0].poll() is None:  # a phase before it raised
+            cli[0].kill()
+            cli[0].wait()
+            shutil.rmtree(cli[1], ignore_errors=True)
+        shutdown_distributed()
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
+
+
 def run(card: str) -> None:
     import torch
 
@@ -1654,6 +2307,8 @@ def run(card: str) -> None:
     gemv_line = asyncio.run(serving_phases(card, records))
     asyncio.run(phase_checkpoint(card, records))
     phase_training(card)
+    phase_parallel(card, records)
+    log(f"chip_smoke total: {time.perf_counter() - _T0:.1f} s")
 
     print(gemv_line)
     print(card)

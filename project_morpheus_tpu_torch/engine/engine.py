@@ -25,6 +25,21 @@
   End-of-stream flush hops are routed in dispatch order without stalling.
 - **Eviction** (stop token, budget, cancel/barge-in) clears the slot;
   co-batched requests are untouched.
+- **Mesh** (``mesh=``, ``parallel.make_mesh``): one engine per rank, in
+  lockstep, every rank given the same submits in the same order.  Under
+  ``model`` > 1 the weights are the ``tp`` shards, unfused, and the cache
+  holds the rank's own kv heads (and, int8, their scales); the model
+  functions add the Megatron collectives (``parallel/tensor.py``: row-split
+  partial sums all-reduced in fp32, vocab-split embedding and logits
+  gathered before sampling).  Under ``data`` > 1 a rank's cache holds its
+  block of slots and it decodes and prefills only those; the sampled
+  tokens are all-gathered every step, so the small per-slot state (lengths,
+  budgets, presence, the code ring, the codec state) and every host
+  decision are the same on every rank.  Each loop turn starts with one
+  host all-reduce that agrees the admissions, cancellations, backpressure
+  gate and shutdown; everything after it is determined by tokens.  Frame
+  programs are CUDA graphs over NCCL (captured collectives) and run
+  eagerly over gloo, which cannot be captured.
 """
 from __future__ import annotations
 
@@ -43,6 +58,7 @@ from ..model.config import LlamaConfig, ORPHEUS_SPECIAL_TOKENS
 from ..model.llama import init_kv_cache, llama_decode_step, llama_prefill_chunk_batch
 from ..model.quant import fuse_layer_weights, is_quantized
 from ..model.sampling import SamplingParams, sample_logits
+from ..parallel.tensor import NO_TP, tensor_parallel
 from ..utils.device import resolve_device
 from .graphs import ProgramCache
 from .request import Request, RequestState
@@ -153,22 +169,39 @@ class OrpheusEngine:
         engine_cfg: Optional[EngineConfig] = None,
         *,
         codec: Optional[tuple] = None,  # (snac_params, SNACConfig): audio mode
+        mesh=None,  # parallel.Mesh (data, model): TP/DP-sharded serving
         seed: int = 0,
         device="cuda",
     ) -> None:
         self.ecfg = engine_cfg or EngineConfig()
         self.device = resolve_device(device)
-        # serving-time projection fusion (wqkv / wgu), numerically identical
-        self.params = fuse_layer_weights(_tree_to(params, self.device))
+        self.mesh = mesh
+        self.tp = NO_TP
+        B = self.ecfg.max_slots
+        self._slots = slice(0, B)  # the slots this rank's cache holds
+        self._data = None          # data-axis group (slots split over it)
+        self._ctrl = None          # host group of the lockstep agreement
+        if mesh is not None:
+            self._init_mesh(mesh)
+        if mesh is not None and mesh.shape["model"] > 1:
+            # Megatron splits q/k/v on head boundaries: a fused wqkv split
+            # over `model` would cut mid-head, so TP keeps them separate
+            from ..parallel.sharding import shard_params
+
+            self.params = shard_params(_tree_to(params, self.device), mesh, "tp")
+        else:
+            # serving-time projection fusion (wqkv / wgu), numerically identical
+            self.params = fuse_layer_weights(_tree_to(params, self.device))
         self.cfg = model_cfg
         self._codec = None
         if codec is not None:
             self._codec = (_tree_to(codec[0], self.device), codec[1])
         self._w8a8 = bool(self.ecfg.prefill_w8a8) and any(
             is_quantized(w) for w in self.params["layers"].values())
-        B, Vp, dev = self.ecfg.max_slots, model_cfg.padded_vocab, self.device
+        Vp, dev = model_cfg.padded_vocab, self.device
         i32 = dict(dtype=torch.int32, device=dev)
-        self.cache = init_kv_cache(model_cfg, B, self.ecfg.max_seq_len,
+        n_local = self._slots.stop - self._slots.start
+        self.cache = init_kv_cache(self.tp.local_cfg(model_cfg), n_local, self.ecfg.max_seq_len,
                                    _DTYPES[self.ecfg.cache_dtype], dev)
         self.lengths = torch.zeros(B, **i32)
         self.active = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -206,7 +239,14 @@ class OrpheusEngine:
             self.steps_per_sync = 7 if self.device.type == "cuda" else 1
         self.frames_per_dispatch = max(1, self.ecfg.frames_per_dispatch)
         self._stop_ids = tuple(sorted(self.ecfg.default_stop_ids))
-        self.programs = ProgramCache(self.device)
+        graphs = mesh is None or mesh.backend != "gloo"
+        if not graphs:
+            logger.info("mesh engine over gloo: frame programs run eagerly (gloo collectives "
+                        "cannot be captured in CUDA graphs)")
+        self.programs = ProgramCache(self.device, graphs=graphs)
+        # slots whose cancellation waits for the next lockstep agreement
+        self._cancel_slots: set = set()
+        self._agreed_pending = 0
         self._free: List[int] = list(range(B))
         self._by_slot: Dict[int, Request] = {}
         self._prefill_jobs: List[dict] = []
@@ -232,6 +272,25 @@ class OrpheusEngine:
         # prefill rounds run, by width J
         self.prefill_rounds: collections.Counter = collections.Counter()
 
+    def _init_mesh(self, mesh) -> None:
+        import torch.distributed as dist
+
+        if mesh.device.type != self.device.type:
+            raise ValueError(f"mesh on {mesh.device}, engine asked for {self.device}")
+        self.device = mesh.device
+        self.tp = tensor_parallel(mesh)
+        dp, B = mesh.shape["data"], self.ecfg.max_slots
+        if B % dp:
+            raise ValueError(f"max_slots={B} does not split over data={dp}")
+        lo = mesh.coords["data"] * (B // dp)
+        self._slots = slice(lo, lo + B // dp)
+        self._data = mesh.group("data")
+        if dist.is_initialized():
+            # host decisions are agreed on the CPU: over gloo, a group of its
+            # own when the default backend is NCCL (created on every rank)
+            self._ctrl = dist.group.WORLD if mesh.backend == "gloo" else \
+                dist.new_group(backend="gloo")
+
     # ------------------------------------------------------------------ api
 
     @property
@@ -256,12 +315,16 @@ class OrpheusEngine:
         return req
 
     def cancel(self, req: Request) -> None:
-        """Barge-in / client-drop path: immediate slot eviction."""
+        """Barge-in / client-drop path: immediate slot eviction (on a mesh, at
+        the next lockstep agreement, on every rank)."""
         if req.done:
             return
         req.state = RequestState.CANCELLED
         if req.slot is not None:
-            self._evict(req.slot)
+            if self._ctrl is not None:
+                self._cancel_slots.add(req.slot)
+            else:
+                self._evict(req.slot)
         req.token_queue.put_nowait(None)
         if req.audio:
             req.pcm_queue.put_nowait(None)
@@ -506,10 +569,15 @@ class OrpheusEngine:
             lens.append(len(part))
         toks_d = self._to_dev(toks, torch.int32)
         slots = [job["slot"] for job in group]
-        offsets = [job["offset"] for job in group]
-        logits = llama_prefill_chunk_batch(
-            self.params, toks_d, self.cfg, self.cache, offsets, slots, lens,
-            hist_bucket=hist, w8a8=self._w8a8)
+        # the jobs whose slots this rank's cache holds (all without a data split)
+        lo, hi = self._slots.start, self._slots.stop
+        mine = [i for i, s in enumerate(slots) if lo <= s < hi]
+        logits = None
+        if mine:
+            logits = llama_prefill_chunk_batch(
+                self.params, toks_d[mine] if len(mine) < J else toks_d, self.cfg, self.cache,
+                [group[i]["offset"] for i in mine], [slots[i] - lo for i in mine],
+                [lens[i] for i in mine], hist_bucket=hist, w8a8=self._w8a8, tp=self.tp)
         self.prefill_rounds[J] += 1
         # each chunk's real tokens count as seen for the repetition penalty
         for i, (slot, n) in enumerate(zip(slots, lens)):
@@ -524,12 +592,19 @@ class OrpheusEngine:
         samp = self._to_dev(np.asarray([job["samp"] for job in group], np.float32),
                             torch.float32)
         sl, audio = ints[:, 0], ints[:, 3].bool()
-        if self.ecfg.banded_sampling:  # first audio codes sample from band 0
-            logits = _band_mask_logits(logits, audio, torch.zeros_like(ints[:, 0]))
-        first = sample_logits(
-            logits, ints[:, 4], torch.zeros_like(ints[:, 4]), temperature=samp[:, 0],
-            top_p=samp[:, 1], repetition_penalty=samp[:, 2], presence=self.presence[sl],
-            vocab_size=self.cfg.vocab_size)
+        first = torch.full((J,), -1, dtype=torch.int32, device=self.device)
+        if mine:
+            m = torch.tensor(mine, device=self.device) if len(mine) < J else slice(None)
+            if self.ecfg.banded_sampling:  # first audio codes sample from band 0
+                logits = _band_mask_logits(logits, audio[m], torch.zeros_like(ints[m, 0]))
+            first[m] = sample_logits(
+                logits, ints[m, 4], torch.zeros_like(ints[m, 4]), temperature=samp[m, 0],
+                top_p=samp[m, 1], repetition_penalty=samp[m, 2], presence=self.presence[sl[m]],
+                vocab_size=self.cfg.vocab_size)
+        if self._data is not None:  # each job's token from the data rank that owns it
+            from ..parallel.collectives import all_reduce
+
+            all_reduce(first, self._data, torch.distributed.ReduceOp.MAX)
         self.presence[sl, first.long()] = True
         self.lengths[sl] = ints[:, 1].int()
         self.last_tokens[sl] = first
@@ -590,25 +665,61 @@ class OrpheusEngine:
 
     def _backpressure_gate(self) -> Optional[np.ndarray]:
         """(B,) bool gate from consumer-queue depth, or None when no live
-        slot can take a frame."""
+        slot can take a frame.  On a mesh a slot is gated when any rank's
+        consumer is saturated (agreed by a host all-reduce)."""
         gate = np.ones((self.ecfg.max_slots,), bool)
-        any_ready = False
         for slot, req in self._by_slot.items():
             depth = req.pcm_queue.qsize() if req.audio else req.token_queue.qsize()
             limit = self.ecfg.max_queued_hops if req.audio else self.ecfg.max_queued_tokens
             if depth >= limit:
                 gate[slot] = False
-            elif req.state is RequestState.DECODING:
-                any_ready = True
+        if self._ctrl is not None:
+            agreed = torch.from_numpy(gate.astype(np.int64))
+            torch.distributed.all_reduce(agreed, torch.distributed.ReduceOp.MIN, group=self._ctrl)
+            gate = agreed.numpy().astype(bool)
+        any_ready = any(gate[slot] and req.state is RequestState.DECODING
+                        for slot, req in self._by_slot.items())
         return gate if any_ready else None
+
+    def _agree(self) -> bool:
+        """The top of a loop turn: fixes how many queued requests to admit
+        and applies pending cancellations; False once the engine is closed.
+        On a mesh every rank takes the least backlog, the union of the
+        cancellations and closes once every rank has closed."""
+        n = self._pending.qsize()
+        if self._ctrl is None:
+            self._agreed_pending = n
+            return not self._closed
+        B = self.ecfg.max_slots
+        keep = np.ones((B,), np.int64)
+        keep[sorted(self._cancel_slots)] = 0
+        self._cancel_slots.clear()
+        vec = torch.from_numpy(np.concatenate([[n, int(not self._closed)], keep]))
+        torch.distributed.all_reduce(vec, torch.distributed.ReduceOp.MIN, group=self._ctrl)
+        vec = vec.tolist()
+        self._agreed_pending = vec[0]
+        for slot in [s for s in range(B) if not vec[2 + s]]:
+            req = self._by_slot.get(slot)
+            if req is not None:
+                if not req.done:  # cancelled on another rank
+                    self.cancel(req)
+                    self._cancel_slots.discard(slot)
+                self._evict(slot)
+        # eviction order can differ between ranks (a cancelled request stops
+        # routing at once where it was cancelled): admit from a sorted list
+        self._free.sort(reverse=True)
+        return bool(vec[1])
 
     def _attn_for(self, bucket: Optional[int]) -> str:
         """Resolve attn_impl="auto": on the card, int8 caches at long
         context take the slot kernel (its bytes follow each slot's live
-        length); everything else the dense bucketed attention."""
+        length); everything else, and every mesh engine (as in JAX), the
+        dense bucketed attention.  An explicit "kernel" on a mesh runs the
+        slot kernel on the rank's own heads."""
         if self.attn_impl != "auto":
             return self.attn_impl
         if (self.device.type == "cuda"
+                and self.mesh is None
                 and self.ecfg.cache_dtype == "int8"
                 and (bucket or self.ecfg.max_seq_len) >= self.ecfg.pallas_min_bucket):
             return "kernel"
@@ -621,14 +732,16 @@ class OrpheusEngine:
         -1 on lanes that did not emit.  A lane's draw counter advances only
         on steps where it emits."""
         active = self.active & self._gate
-        logits = llama_decode_step(self.params, self.last_tokens, self.cfg, self.cache,
-                                   self.lengths, active=active, attn_impl=attn_impl,
-                                   bucket=bucket)
+        sl = self._slots  # this rank's slots: all of them without a data split
+        logits = llama_decode_step(self.params, self.last_tokens[sl], self.cfg, self.cache,
+                                   self.lengths[sl], active=active[sl], attn_impl=attn_impl,
+                                   bucket=bucket, tp=self.tp)
         if banded:
-            logits = _band_mask_logits(logits, self.is_audio, self.audio_pos)
-        toks = sample_logits(logits, self.seeds, self.draws, temperature=self.temp,
-                             top_p=self.top_p, repetition_penalty=self.rep_pen,
-                             presence=self.presence, vocab_size=self.cfg.vocab_size)
+            logits = _band_mask_logits(logits, self.is_audio[sl], self.audio_pos[sl])
+        toks = sample_logits(logits, self.seeds[sl], self.draws[sl], temperature=self.temp[sl],
+                             top_p=self.top_p[sl], repetition_penalty=self.rep_pen[sl],
+                             presence=self.presence[sl], vocab_size=self.cfg.vocab_size)
+        toks = self._gather_slots(toks)
         toks = torch.where(active, toks, torch.zeros_like(toks))
         idx = (self._rows, toks.long())
         self.presence[idx] = self.presence[idx] | active
@@ -636,6 +749,12 @@ class OrpheusEngine:
         self.draws.add_(active.to(torch.int64))
         self.last_tokens.copy_(torch.where(active, toks, self.last_tokens))
         return torch.where(active, toks, torch.full_like(toks, -1))
+
+    def _gather_slots(self, t: torch.Tensor) -> torch.Tensor:
+        """Every slot's values from each data rank's block of them."""
+        from ..parallel.collectives import all_gather
+
+        return all_gather(t, 0, self._data)
 
     def _post_step(self, toks) -> None:
         """A lane stops on a default or custom stop id or an exhausted budget."""
@@ -727,7 +846,7 @@ class OrpheusEngine:
         k = 1
         if audio and not (self._prefill_jobs or self._pending_first
                           # an admission is imminent only when a slot is free
-                          or (self._free and not self._pending.empty())
+                          or (self._free and self._agreed_pending)
                           or any(r.planner.emitted == 0 for r in audio_reqs)):
             k = self.frames_per_dispatch
         bucket = self._context_bucket(self.steps_per_sync * k)
@@ -916,20 +1035,29 @@ class OrpheusEngine:
         # One frame in flight: dispatch frame N, enqueue its readback, run
         # at most one prefill round, then route frame N-1 while N runs.
         inflight = None  # (slot snapshot, firsts, readback future)
-        while not self._closed:
-            # admission takes the whole backlog, up to the free slots
-            if self._free and not self._pending.empty():
+        while self._agree():
+            # admission takes the (agreed) backlog, up to the free slots
+            if self._free and self._agreed_pending:
                 deferred = []
-                while not self._pending.empty():
+                for _ in range(self._agreed_pending):
                     req = self._pending.get_nowait()
-                    if req.state is RequestState.CANCELLED:
+                    cancelled = req.state is RequestState.CANCELLED
+                    if cancelled and self._ctrl is None:
                         continue
                     if self._free:
                         self._guarded_admit(req)
+                        if cancelled and req.slot is not None:
+                            # on a mesh a slot is freed on every rank at once
+                            req.state = RequestState.CANCELLED
+                            self._cancel_slots.add(req.slot)
                     else:
                         deferred.append(req)
-                for req in deferred:
+                rest = []
+                while not self._pending.empty():
+                    rest.append(self._pending.get_nowait())
+                for req in deferred + rest:
                     self._pending.put_nowait(req)
+                self._agreed_pending = len(deferred)  # still waiting for a slot
             if not self._by_slot:
                 inflight = await self._drain(inflight)
                 if self._by_slot or not self._pending.empty():

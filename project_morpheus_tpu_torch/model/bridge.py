@@ -34,8 +34,14 @@ def _leaf(a, device) -> torch.Tensor:
     return t.to(device)
 
 
-def params_from_jax_numpy(tree, device="cpu"):
-    """JAX params tree with numpy leaves -> the port's params on ``device``."""
+def params_from_jax_numpy(tree, device="cpu", mesh=None, mode: str = "tp"):
+    """JAX params tree with numpy leaves -> the port's params on ``device``.
+    With ``mesh``, this rank's ``mode`` shards of the Llama params
+    (``parallel.sharding.shard_params``), cut before they move."""
+    if mesh is not None:
+        from ..parallel.sharding import shard_params
+
+        tree = shard_params(tree, mesh, mode)
     return tree_map(lambda a: _leaf(a, device), tree)
 
 

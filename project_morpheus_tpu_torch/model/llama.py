@@ -13,6 +13,12 @@ tests hold both packages to the same numbers:
   ``scale`` ``(L, B, S, 2KV)`` (k scales first); bf16 cache: head-major
   ``(L, B, KV, S, HD)``.
 
+Tensor parallelism (``tp=``, a ``parallel.tensor.TensorParallel``): a
+rank's params hold the ``tp`` shards of ``parallel/sharding.py`` and its
+cache its own kv heads; the functions add the Megatron collectives (the
+embedding and row-split partial sums summed over the group, the logits
+gathered) and, without a group, compute exactly the unsharded path.
+
 Where JAX threads an immutable cache through a layer loop, the port
 updates the cache tensors IN PLACE (so a captured CUDA graph of the decode
 step writes the engine's cache where it lies); the decode-attention kernels read the
@@ -34,9 +40,9 @@ from ..ops.decode_attention import (
     decode_attention_int8_slots,
     decode_attention_layered,
 )
+from ..parallel.tensor import as_tp
 from .config import LlamaConfig
 from .quant import (
-    embed_lookup,
     is_quantized,
     matmul_maybe_quant,
     matmul_w8a8,
@@ -143,21 +149,23 @@ def _project_qkv(h, wl, cfg: LlamaConfig, mm=matmul_maybe_quant):
             _split_heads(mm(h, wl["wv"]), KV, HD))
 
 
-def _mlp(h, wl, cfg: LlamaConfig, mm=matmul_maybe_quant):
-    """SwiGLU MLP, from a fused ``wgu`` leaf when present."""
+def _mlp(h, wl, cfg: LlamaConfig, mm=matmul_maybe_quant, mm_down=None):
+    """SwiGLU MLP, from a fused ``wgu`` leaf when present; ``mm_down``
+    (default ``mm``) multiplies the down projection."""
     if "wgu" in wl:
         gu = mm(h, wl["wgu"])
         F_ = cfg.intermediate_size
         act = F.silu(gu[..., :F_]) * gu[..., F_:]
     else:
         act = F.silu(mm(h, wl["wg"])) * mm(h, wl["wu"])
-    return mm(act, wl["wd"])
+    return (mm_down or mm)(act, wl["wd"])
 
 
-def lm_head_logits(params: Params, h: torch.Tensor) -> torch.Tensor:
+def lm_head_logits(params: Params, h: torch.Tensor, tp=None) -> torch.Tensor:
     """Final hidden -> fp32 logits over ``padded_vocab`` (tied embedding or
     a separate lm_head); the chunked-vocab training loss applies it to one
-    sequence chunk at a time."""
+    sequence chunk at a time.  Under ``tp``: this rank's vocab columns."""
+    h = as_tp(tp).enter(h)
     head = params.get("lm_head")
     if head is None:
         return tied_lm_head_logits(h, params["embed"])
@@ -232,6 +240,7 @@ def llama_prefill_chunk(
     *,
     hist_bucket: int,       # attention reads cache[:hist_bucket]
     w8a8: bool = False,     # int8-activation projections/MLP
+    tp=None,                # tensor parallelism (module docstring)
 ) -> torch.Tensor:
     """One prompt chunk against the KV history already in the cache.
 
@@ -240,7 +249,7 @@ def llama_prefill_chunk(
     batched round of :func:`llama_prefill_chunk_batch` with one job."""
     return llama_prefill_chunk_batch(
         params, tokens[None], cfg, cache, [offset], [slot], [length],
-        hist_bucket=hist_bucket, w8a8=w8a8)[0]
+        hist_bucket=hist_bucket, w8a8=w8a8, tp=tp)[0]
 
 
 @torch.no_grad()
@@ -255,6 +264,7 @@ def llama_prefill_chunk_batch(
     *,
     hist_bucket: int,           # attention reads cache[:hist_bucket]
     w8a8: bool = False,
+    tp=None,
 ) -> torch.Tensor:
     """One prompt chunk from EACH of J slots in one pass: the projections
     and MLP run on ``(J * C, D)`` rows, and each chunk attends only to its
@@ -263,6 +273,8 @@ def llama_prefill_chunk_batch(
     chunk plan).  Returns the fp32 logits ``(J, padded_vocab)`` of each
     chunk's last real position."""
     J, C = tokens.shape
+    tp = as_tp(tp)
+    cfg = tp.local_cfg(cfg)
     KV, HD = cfg.num_kv_heads, cfg.head_dim
     G = cfg.num_heads // KV
     quant = kv_cache_is_quantized(cache)
@@ -271,13 +283,15 @@ def llama_prefill_chunk_batch(
     steps = torch.arange(C, dtype=torch.int32, device=dev)
     positions = torch.stack([off + steps for off in offsets])  # (J, C)
     n_live = max(offsets) + C
-    x = embed_lookup(params["embed"], tokens, params["ln_f"].dtype)  # (J, C, D)
+    x = tp.embed(params["embed"], tokens, params["ln_f"].dtype)  # (J, C, D)
     mm = matmul_w8a8 if w8a8 else matmul_maybe_quant
+    # row-split inputs take their per-token int8 scale over the whole row
+    mm_row = (lambda h, w: matmul_w8a8(h, w, amax=tp.amax)) if w8a8 else matmul_maybe_quant
     lp = params["layers"]
     for i in range(cfg.num_layers):
         wl = _layer(lp, i)
         h = rmsnorm(x, wl["ln1"], cfg.rms_eps)
-        q, k, v = _project_qkv(h, wl, cfg, mm)  # (J, C, H/KV, HD)
+        q, k, v = _project_qkv(tp.enter(h), wl, cfg, mm)  # (J, C, H/KV, HD)
         q = apply_rope(q, positions, inv_freqs)
         k = apply_rope(k, positions, inv_freqs)
         if quant:
@@ -305,11 +319,12 @@ def llama_prefill_chunk_batch(
                 q[j].reshape(C, KV, G, HD), k_s, v_s, ks_s, vs_s, positions[j],
                 hist_bucket, n_live=n_live))
         attn = torch.stack(attn).reshape(J, C, cfg.num_heads * HD).to(x.dtype)
-        x = x + mm(attn, wl["wo"])
+        x = x + tp.reduce(mm_row(attn, wl["wo"]))
         h = rmsnorm(x, wl["ln2"], cfg.rms_eps)
-        x = x + _mlp(h, wl, cfg, mm)
+        x = x + tp.reduce(_mlp(tp.enter(h), wl, cfg, mm, mm_row))
     x_last = torch.stack([x[j, n - 1] for j, n in enumerate(lengths)])  # (J, D)
-    return lm_head_logits(params, rmsnorm(x_last, params["ln_f"], cfg.rms_eps))
+    return tp.gather_vocab(lm_head_logits(params, rmsnorm(x_last, params["ln_f"], cfg.rms_eps),
+                                          tp))
 
 
 # ------------------------------------------------------------------- decode
@@ -332,6 +347,7 @@ def llama_decode_step(
     active: Optional[torch.Tensor] = None,  # (B,) bool; inactive logits zeroed
     attn_impl: str = "dense",  # "dense" | "kernel" (the CUDA flash kernels)
     bucket: Optional[int] = None,  # dense attention reads cache[:bucket]
+    tp=None,                # tensor parallelism (module docstring)
 ) -> torch.Tensor:
     """One decode step for every slot: writes each token's K/V at
     ``lengths[b]`` and attends positions ``<= lengths[b]``.  Returns fp32
@@ -342,6 +358,8 @@ def llama_decode_step(
     int8 (int8 q.k and requantised probs, exact integer dots), dense bf16.
     """
     B = tokens.shape[0]
+    tp = as_tp(tp)
+    cfg = tp.local_cfg(cfg)
     quant = kv_cache_is_quantized(cache)
     S = cache["k"].shape[2 if quant else 3]
     KV, HD = cfg.num_kv_heads, cfg.head_dim
@@ -349,7 +367,7 @@ def llama_decode_step(
     bkt = min(bucket or S, S)
     dev = tokens.device
     inv_freqs = rope_inv_freqs(cfg, dev)
-    x = embed_lookup(params["embed"], tokens[:, None], params["ln_f"].dtype)  # (B, 1, D)
+    x = tp.embed(params["embed"], tokens[:, None], params["ln_f"].dtype)  # (B, 1, D)
     positions = lengths[:, None]
     pos_l = lengths.long()
     slots = torch.arange(B, device=dev)
@@ -359,7 +377,7 @@ def llama_decode_step(
     for i in range(cfg.num_layers):
         wl = _layer(lp, i)
         h = rmsnorm(x, wl["ln1"], cfg.rms_eps)
-        q, k, v = _project_qkv(h, wl, cfg)
+        q, k, v = _project_qkv(tp.enter(h), wl, cfg)
         q = apply_rope(q, positions, inv_freqs)
         k = apply_rope(k, positions, inv_freqs)
         # every slot's new K/V at lengths[b], one indexed write per tensor
@@ -410,11 +428,11 @@ def llama_decode_step(
             attn = torch.einsum(
                 "bkgs,bksd->bkgd", probs.to(dt).float(), v_s.to(dt).float()
             ).reshape(B, 1, cfg.num_heads * HD).to(dt)
-        x = x + matmul_maybe_quant(attn, wl["wo"])
+        x = x + tp.reduce(matmul_maybe_quant(attn, wl["wo"]))
         h = rmsnorm(x, wl["ln2"], cfg.rms_eps)
-        x = x + _mlp(h, wl, cfg)
+        x = x + tp.reduce(_mlp(tp.enter(h), wl, cfg))
     x = rmsnorm(x[:, 0], params["ln_f"], cfg.rms_eps)
-    logits = lm_head_logits(params, x)
+    logits = tp.gather_vocab(lm_head_logits(params, x, tp))
     if active is not None:
         logits = torch.where(active[:, None], logits, torch.zeros_like(logits))
     return logits
@@ -473,13 +491,20 @@ def _proj(h, wl, ll, name: str, lora_scale: float) -> torch.Tensor:
 
 
 def _train_layer(x, wl, ll, positions, inv_freqs, attn_mask, mask, cfg: LlamaConfig,
-                 attn_impl: str, lora_scale: float):
-    """One decoder layer of the full-sequence forward: ``(x, k, v)``."""
+                 attn_impl: str, lora_scale: float, tp=None, gather_layer=None):
+    """One decoder layer of the full-sequence forward: ``(x, k, v)``.
+    ``gather_layer`` turns a rank's ZeRO-3 shards of the layer's weights
+    into the weights it computes with (inside a recomputed layer, so they
+    are gathered again in the backward and not kept)."""
     from ..ops.blockwise_attention import blockwise_causal_attention
 
+    tp = as_tp(tp)
+    if gather_layer is not None:
+        wl = gather_layer(wl)
+    cfg = tp.local_cfg(cfg)
     B, S = x.shape[:2]
     H, KV, HD = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    h = rmsnorm(x, wl["ln1"], cfg.rms_eps)
+    h = tp.enter(rmsnorm(x, wl["ln1"], cfg.rms_eps))
     if ll is None:
         q, k, v = _project_qkv(h, wl, cfg)  # fused-aware
     else:
@@ -492,10 +517,10 @@ def _train_layer(x, wl, ll, positions, inv_freqs, attn_mask, mask, cfg: LlamaCon
         attn = blockwise_causal_attention(q, k, v, attn_mask).reshape(B, S, H * HD)
     else:
         attn = _attn_full(q, k, v, mask, cfg)
-    x = x + _proj(attn, wl, ll, "wo", lora_scale)
-    h = rmsnorm(x, wl["ln2"], cfg.rms_eps)
+    x = x + tp.reduce(_proj(attn, wl, ll, "wo", lora_scale))
+    h = tp.enter(rmsnorm(x, wl["ln2"], cfg.rms_eps))
     if ll is None:
-        return x + _mlp(h, wl, cfg), k, v
+        return x + tp.reduce(_mlp(h, wl, cfg)), k, v
     act = F.silu(_proj(h, wl, ll, "wg", lora_scale)) * _proj(h, wl, ll, "wu", lora_scale)
     return x + _proj(act, wl, ll, "wd", lora_scale), k, v
 
@@ -548,6 +573,8 @@ def llama_forward(
     return_hidden: bool = False,                  # (B, S, D) normed hidden, no lm head
     scan_layers: bool = True,
     accum_stack_grads: bool = False,
+    tp=None,                                      # tensor parallelism (module docstring)
+    gather_layer=None,                            # a layer's ZeRO-3 shards -> its weights
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Full-sequence forward (training, and prefill into a cache).
 
@@ -570,6 +597,10 @@ def llama_forward(
       scan (one gradient copy, each layer recomputed); here it is the
       per-layer recompute over the unbound leaves (``remat``), and, as in
       JAX, takes neither LoRA, a cache nor the grouped layout.
+
+    Sharded training (``training/pretrain.py`` on a mesh) passes ``tp``
+    and ``gather_layer`` with the embedding, final norm and head already
+    gathered; the logits are then this rank's vocab columns.
     """
     B, S = tokens.shape
     dev = tokens.device
@@ -580,6 +611,9 @@ def llama_forward(
     if grouped and (lora is not None or cache is not None):
         raise ValueError("the grouped layer layout is a training path without LoRA or a cache")
     remat = remat or accum_stack_grads
+    tp = as_tp(tp)
+    if lora is not None and tp.size > 1:
+        raise ValueError("LoRA adapters are not split for tensor parallelism")
     if positions is None:
         positions = torch.arange(S, device=dev).expand(B, S)
     if attn_mask is None:
@@ -591,12 +625,13 @@ def llama_forward(
         mask = causal[None] & attn_mask[:, None, :]
 
     inv_freqs = rope_inv_freqs(cfg, dev)
-    x = embed_lookup(params["embed"], tokens, params["ln_f"].dtype)
+    x = tp.embed(params["embed"], tokens, params["ln_f"].dtype)
     layers = _layer_list(params["layers"])
     adapters = _per_layer(lora["layers"]) if lora is not None else [None] * len(layers)
     ks, vs = [], []
     for wl, ll in zip(layers, adapters):
-        args = (x, wl, ll, positions, inv_freqs, attn_mask, mask, cfg, attn_impl, lora_scale)
+        args = (x, wl, ll, positions, inv_freqs, attn_mask, mask, cfg, attn_impl, lora_scale,
+                tp, gather_layer)
         if remat and torch.is_grad_enabled():
             x, k, v = checkpoint(_train_layer, *args, use_reentrant=False)
         else:
@@ -605,7 +640,7 @@ def llama_forward(
             ks.append(k)
             vs.append(v)
     x = rmsnorm(x, params["ln_f"], cfg.rms_eps)
-    out = x if return_hidden else lm_head_logits(params, x)
+    out = x if return_hidden else lm_head_logits(params, x, tp)
     if cache is None:
         return out, None
     offsets = cache_offset if cache_offset is not None else torch.zeros(B, dtype=torch.int64)

@@ -91,13 +91,18 @@ def _int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.double() @ b.double()).to(torch.int32)
 
 
-def matmul_w8a8(h: torch.Tensor, w: Weight) -> torch.Tensor:
+def matmul_w8a8(h: torch.Tensor, w: Weight, amax=None) -> torch.Tensor:
     """``h @ w`` with per-token int8 activations and an int8 x int8 product
-    (the chunk-prefill projections); plain weights use the dtype matmul."""
+    (the chunk-prefill projections); plain weights use the dtype matmul.
+    ``amax`` maps the per-token absolute maxima of ``h`` to those of the
+    whole row (a tensor-parallel rank holds part of a row-split input)."""
     if not is_quantized(w):
         return h @ w
     hf = h.float()
-    hsc = torch.clamp(hf.abs().amax(dim=-1, keepdim=True), min=1e-8) / 127.0
+    peak = hf.abs().amax(dim=-1, keepdim=True)
+    if amax is not None:
+        peak = amax(peak)
+    hsc = torch.clamp(peak, min=1e-8) / 127.0
     h8 = torch.clamp(torch.round(hf / hsc), -127, 127).to(torch.int8)
     y32 = _int8_matmul(h8.reshape(-1, h8.shape[-1]), w["q"])
     y32 = y32.reshape(*h8.shape[:-1], y32.shape[-1])

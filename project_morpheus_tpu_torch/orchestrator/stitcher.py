@@ -22,7 +22,17 @@ def _fade(n: int, rising: bool) -> np.ndarray:
 
 
 def crossfade(tail: np.ndarray, head: np.ndarray, overlap: int) -> np.ndarray:
-    """Overlap-add ``tail`` into ``head``; returns the joined int16 array."""
+    """Overlap-add ``tail`` into ``head``; returns the joined int16 array.
+
+    With ``ORPHEUS_NATIVE_PCM=1`` the join runs in the compiled C++
+    pcm_ops library (native.crossfade_join, equivalence-tested against
+    this implementation in tests/test_torch_native.py); the Python path is the
+    default and the oracle.
+    """
+    from .. import native
+
+    if native.enabled():
+        return native.crossfade_join(tail, head, overlap)
     ov = min(overlap, tail.size, head.size)
     if ov <= 0:
         return np.concatenate([tail, head])

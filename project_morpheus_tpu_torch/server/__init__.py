@@ -1,1 +1,7 @@
-"""HTTP API server (aiohttp): speech synthesis, voices, stats."""
+"""HTTP API server (aiohttp): speech synthesis, voices, stats (port of
+server/__init__.py), and its Python client."""
+
+from .app import create_app, start_server
+from .client import Client
+
+__all__ = ["create_app", "start_server", "Client"]

@@ -408,6 +408,15 @@ def create_app(generation: Optional[dict] = None) -> web.Application:
     return app
 
 
+def start_server(host: Optional[str] = None, port: Optional[int] = None) -> None:
+    """Serve ``create_app()`` until interrupted, on ``ORPHEUS_HOST`` /
+    ``ORPHEUS_PORT`` (config.py) unless given; the runtime is the one
+    ``set_runtime`` installed, else the default (on the card)."""
+    cfg = config_mod.get_current_config()
+    web.run_app(create_app(), host=host or cfg["ORPHEUS_HOST"],
+                port=int(port or cfg["ORPHEUS_PORT"]))
+
+
 def main(argv=None) -> None:
     import argparse
 
@@ -418,10 +427,8 @@ def main(argv=None) -> None:
                    help="device the engine runs on (cuda unless cpu is asked for)")
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    cfg = config_mod.get_current_config()
     set_runtime(ServingRuntime(device=args.device))
-    web.run_app(create_app(), host=args.host or cfg["ORPHEUS_HOST"],
-                port=args.port or int(cfg["ORPHEUS_PORT"]))
+    start_server(args.host, args.port)
 
 
 if __name__ == "__main__":

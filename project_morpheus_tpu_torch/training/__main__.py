@@ -7,8 +7,21 @@ YAML-config driven like the reference (pretrain/config.yaml,
 finetune/config.yaml), with the JAX CLI's keys and casts; data is JSONL of
 ``{"input_ids": [...]}`` records.  The config is read with PyYAML's
 ``safe_load`` (so ``1e-3`` arrives as a string, which ``float`` takes, as in
-the JAX CLI).  Runs on ``cuda`` unless ``--device cpu``; one card only:
-``tensor_parallel`` above 1 and multi-process launches raise.
+the JAX CLI).  Runs on ``cuda`` unless ``--device cpu``.
+
+Multi-process: launch one process per device with ``torchrun`` (or set
+the JAX recipe's ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
+``JAX_PROCESS_ID``); ``parallel.initialize_distributed`` forms the group
+and the ranks make a ``(data, tensor_parallel)`` mesh.  ``pretrain`` and
+``finetune`` then train sharded, ``fsdp_tp`` when ``tensor_parallel`` > 1
+and ``fsdp`` otherwise, each data rank on its strided
+share of the records (``batch_size`` is per data rank, as in the JAX CLI),
+logging and checkpoints on rank 0::
+
+    torchrun --nproc_per_node 2 -m project_morpheus_tpu_torch.training \
+        pretrain --config cfg.yaml
+
+``lora`` trains on one device; under a mesh it raises.
 """
 from __future__ import annotations
 
@@ -42,17 +55,29 @@ def main(argv=None) -> int:
 
     from ..model import LlamaConfig
     from ..model.llama import init_llama_params
+    from ..parallel import initialize_distributed, make_mesh, make_multihost_mesh
+    from ..parallel.mesh import STATE
     from ..utils.device import resolve_device
-    from .data import BatchedRatioDataset
-    from .pretrain import TrainConfig, check_single_device, train_loop
+    from .data import BatchedRatioDataset, shard_for_rank
+    from .pretrain import TrainConfig, train_loop
 
     tp = int(cfg_dict.get("tensor_parallel", 1))
-    if tp > 1:
+    multi = initialize_distributed(device=args.device)
+    dev = STATE.device or resolve_device(args.device)
+    mesh = None
+    if args.cmd == "lora" and (multi or tp > 1):
         raise NotImplementedError(
-            f"tensor_parallel: {tp}: the port trains on one card; tensor parallelism over "
-            "NCCL waits in ROADMAP.md queue 1")
-    check_single_device()
-    dev = resolve_device(args.device)
+            f"lora trains on one device (tensor_parallel: {tp}, "
+            f"{torch.distributed.get_world_size() if multi else 1} process(es))")
+    if multi or tp > 1:
+        mesh = (make_multihost_mesh if multi else make_mesh)(model=tp, device=dev)
+    shard_mode = "fsdp_tp" if tp > 1 else "fsdp"
+
+    def local(records: list) -> list:
+        """This data rank's strided share (AlternatingDistributedSampler)."""
+        if mesh is None:
+            return records
+        return shard_for_rank(records, mesh.coords["data"], mesh.shape["data"])
     size = cfg_dict.get("model_size", "tiny")
     model_cfg = {
         "tiny": LlamaConfig.tiny,
@@ -79,21 +104,23 @@ def main(argv=None) -> int:
             dtype=torch.bfloat16 if cfg_dict.get("bf16", True) else torch.float32)
 
     def log(rec):
-        print(json.dumps(rec), flush=True)
+        # rank-0 logging, like the reference's rank-0 wandb stream
+        if not multi or torch.distributed.get_rank() == 0:
+            print(json.dumps(rec), flush=True)
 
     batch_size = int(cfg_dict.get("batch_size", 1))
     if args.cmd == "pretrain":
-        text = _load_jsonl(cfg_dict["text_data"])
-        audio = _load_jsonl(cfg_dict["audio_data"])
+        text = local(_load_jsonl(cfg_dict["text_data"]))
+        audio = local(_load_jsonl(cfg_dict["audio_data"]))
         ds = BatchedRatioDataset(text, audio, batch_size, ratio=int(cfg_dict.get("ratio", 1)))
-        train_loop(params, model_cfg, iter(ds), tc=tc, log=log, checkpoint_dir=ckpt_path,
-                   device=dev)
+        train_loop(params, model_cfg, iter(ds), tc=tc, mesh=mesh, log=log,
+                   checkpoint_dir=ckpt_path, shard_mode=shard_mode, device=dev)
     elif args.cmd == "finetune":
         from .finetune import finetune
 
-        data = _load_jsonl(cfg_dict["data"])
-        finetune(params, model_cfg, data, batch_size=batch_size, tc=tc, log=log,
-                 checkpoint_dir=ckpt_path, device=dev)
+        data = local(_load_jsonl(cfg_dict["data"]))
+        finetune(params, model_cfg, data, batch_size=batch_size, tc=tc, mesh=mesh, log=log,
+                 checkpoint_dir=ckpt_path, device=dev, shard_mode=shard_mode)
     else:  # lora
         from .data import pad_collate
         from .lora import LoraConfig, init_lora_params, make_lora_train_step, merge_lora
@@ -120,6 +147,8 @@ def main(argv=None) -> int:
             save_params(ckpt_path, merge_lora(params, lora, lc), step=tc.total_steps,
                         cfg=model_cfg)
             log({"saved_merged": ckpt_path})
+    if multi:
+        torch.distributed.destroy_process_group()
     return 0
 
 

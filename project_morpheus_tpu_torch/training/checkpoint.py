@@ -153,10 +153,11 @@ def restore_params(directory, step: Optional[int] = None, device="cuda") -> Dict
 def save_train_state(directory, params, opt_state, step: int) -> str:
     """Save the full trainer state, params + AdamW moments + step, so a
     killed run resumes on the same trajectory.  ``opt_state`` is the
-    trainer's ``OptState``."""
+    trainer's ``OptState`` or its ``moments()`` (whole tensors, as a
+    sharded run gathers them)."""
     path = _ckpt_path(directory, step)
     path.mkdir(parents=True, exist_ok=True)
-    moments = opt_state.moments()
+    moments = opt_state if isinstance(opt_state, dict) else opt_state.moments()
     _write_safetensors(path / "params.safetensors", _flatten(params))
     _write_safetensors(path / "opt_state.safetensors",
                        _flatten({"mu": moments["mu"], "nu": moments["nu"]}))
@@ -165,9 +166,12 @@ def save_train_state(directory, params, opt_state, step: int) -> str:
     return str(path)
 
 
-def restore_train_state(directory, step: Optional[int] = None, device="cuda") -> Dict:
+def restore_train_state(directory, step: Optional[int] = None, device="cuda",
+                        mesh=None, shard_mode: str = "fsdp") -> Dict:
     """``{"params", "opt_state": {"count", "mu", "nu"}, "step"}`` from
-    ``step_<step>`` (the newest by default), stacked layout, on ``device``."""
+    ``step_<step>`` (the newest by default), stacked layout, on ``device``.
+    With ``mesh``, every tree is this rank's ``shard_mode`` shards, cut on
+    the host before they move to the device."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -175,7 +179,20 @@ def restore_train_state(directory, step: Optional[int] = None, device="cuda") ->
     path = _ckpt_path(directory, step)
     dev = resolve_device(device)
     meta = json.loads((path / "train_state.json").read_text())
-    moments = _read_tree(path / "opt_state.safetensors", dev)
-    return {"params": _read_tree(path / "params.safetensors", dev),
+    read = "cpu" if mesh is not None else dev
+    params = _read_tree(path / "params.safetensors", read)
+    moments = _read_tree(path / "opt_state.safetensors", read)
+    if mesh is not None:
+        from ..model.bridge import tree_map
+        from ..parallel.sharding import leaf_shardings, shard_params
+
+        shardings = leaf_shardings(params, mesh, shard_mode)
+
+        def local(tree):
+            return tree_map(lambda a: a.to(dev), shard_params(tree, mesh, shard_mode, shardings))
+
+        params = local(params)
+        moments = {k: local(moments[k]) for k in ("mu", "nu")}
+    return {"params": params,
             "opt_state": {"count": meta["count"], "mu": moments["mu"], "nu": moments["nu"]},
             "step": meta["step"]}

@@ -21,10 +21,11 @@ def finetune(
     log: Optional[Callable[[Dict], None]] = None,
     checkpoint_dir: Optional[str] = None,
     device="cuda",
+    shard_mode: str = "fsdp",
 ) -> Tuple[Dict, Dict]:
     def batches() -> Iterable[Dict]:
         for i in range(0, len(examples) - batch_size + 1, batch_size):
             yield {"kind": "audio", "examples": list(examples[i : i + batch_size])}
 
     return train_loop(params, cfg, batches(), tc=tc, mesh=mesh, log=log,
-                      checkpoint_dir=checkpoint_dir, device=device)
+                      checkpoint_dir=checkpoint_dir, shard_mode=shard_mode, device=device)

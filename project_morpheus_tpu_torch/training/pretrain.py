@@ -1,10 +1,16 @@
-"""Pretraining on one card (port of training/pretrain.py).
+"""Pretraining (port of training/pretrain.py).
 
 The JAX trainer is one jitted step over parameters sharded on a mesh; here
-it is one autograd step on one card, whose 80 GB hold the reference recipe
+it is one autograd step per process.  One card holds the reference recipe
 (Orpheus-3B, bf16, seq 8192, batch 1) whole: bf16 params and grads, AdamW
 moments in the params' dtype (as optax keeps them), layer-boundary
-activations under per-layer recompute and one chunk of fp32 logits.
+activations under per-layer recompute and one chunk of fp32 logits.  On a
+mesh (``train_loop(mesh=..., shard_mode=...)``) each process is one rank
+of ``torch.distributed``: ``fsdp`` is ZeRO-3 over ``data``, ``fsdp_tp``
+adds Megatron tensor parallelism over ``model``
+(``parallel/training.py``); batches are rank-local (``data.shard_for_rank``
+by the rank's data coordinate), and the losses, the clipped update and the
+checkpoints equal the single-process run on the global batch.
 
 The optimizer is ``torch.optim.AdamW`` behind a ``LambdaLR`` that gives
 optax's ``warmup_cosine_decay_schedule`` (evaluated at the update count
@@ -25,12 +31,10 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import os
 import time
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..model.bridge import (
@@ -42,6 +46,7 @@ from ..model.bridge import (
 )
 from ..model.config import LlamaConfig
 from ..model.llama import llama_forward, lm_head_logits
+from ..parallel.tensor import NO_TP
 from ..utils.device import resolve_device
 from .data import IGNORE_LABEL
 
@@ -96,12 +101,14 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(g.float().square().sum() for g in grads))
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        norm_fn: Callable = global_norm) -> List[torch.Tensor]:
     """optax's ``clip_by_global_norm``, in place: leaves unchanged while the
     norm is below ``max_norm``, else ``g / norm * max_norm`` (no epsilon;
     dividing and multiplying by 1 leaves a value exact).  The choice stays
-    on the device: no host sync."""
-    norm = global_norm(grads)
+    on the device: no host sync.  ``norm_fn`` is the sharded norm on a
+    mesh."""
+    norm = norm_fn(grads)
     keep = norm < max_norm
     div = torch.where(keep, torch.ones_like(norm), norm)
     mul = torch.where(keep, torch.ones_like(norm), torch.full_like(norm, max_norm))
@@ -165,11 +172,12 @@ class AdamWSchedule:
             adamw, lambda count: warmup_cosine_lr(self.tc, count))
         return OptState(tree, leaves, adamw, schedule)
 
-    def update(self, grads: List[torch.Tensor], state: OptState) -> None:
+    def update(self, grads: List[torch.Tensor], state: OptState,
+               norm_fn: Callable = global_norm) -> None:
         """Clip ``grads`` (in ``state.leaves`` order), step AdamW at the
         schedule's current rate, then advance the schedule."""
-        for p, g in zip(state.leaves, clip_by_global_norm(list(grads), self.tc.max_grad_norm),
-                        strict=True):
+        clipped = clip_by_global_norm(list(grads), self.tc.max_grad_norm, norm_fn)
+        for p, g in zip(state.leaves, clipped, strict=True):
             p.grad = g
         state.adamw.step()
         state.adamw.zero_grad(set_to_none=True)
@@ -191,10 +199,9 @@ def _batch_tensors(batch: Dict, device) -> Tuple[torch.Tensor, torch.Tensor, tor
 
 
 def _chunk_loss(head: Dict, h: torch.Tensor, labels: torch.Tensor,
-                mask: torch.Tensor) -> torch.Tensor:
-    logits = lm_head_logits(head, h)  # (B, C, padded_vocab) fp32
-    ll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
-                         reduction="none")
+                mask: torch.Tensor, tp=NO_TP) -> torch.Tensor:
+    logits = lm_head_logits(head, h, tp)  # (B, C, padded_vocab [/ tp]) fp32
+    ll = tp.cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1))
     return (ll * mask.reshape(-1)).sum()
 
 
@@ -209,9 +216,15 @@ def causal_lm_loss(
     logits_chunk: int = 0,
     scan_layers: bool = True,
     accum_stack_grads: bool = False,
+    shard=None,
 ) -> torch.Tensor:
     """Next-token cross entropy over the padded vocab, ``-100`` labels
     ignored, divided by ``max(labels kept, 1)``.
+
+    ``shard`` (a ``parallel.training.TrainShards``): ``params`` are this
+    rank's shards, ``batch`` its data rank's examples, and the result its
+    share of the global mean loss: its token losses over the token count
+    of every data rank (the shares summed over ``data`` are the loss).
 
     ``logits_chunk > 0`` is the chunked-vocab loss: the forward returns
     hidden states and the lm head + softmax cross entropy run on one
@@ -220,25 +233,32 @@ def causal_lm_loss(
     logits and the ``(S, padded_vocab)`` fp32 logits never exist whole.
     The tied embedding takes its gradient from the lookup and the head."""
     ids, attn_mask, labels = _batch_tensors(batch, params["ln_f"].device)
+    tp, extra = NO_TP, {}
+    if shard is not None:
+        params = shard.gather_top(params)
+        tp = shard.tp
+        extra = {"tp": tp, "gather_layer": shard.gather_layer}
     out, _ = llama_forward(
         params, ids, cfg, attn_mask=attn_mask, lora=lora, lora_scale=lora_scale,
         attn_impl=attn_impl, remat=remat, return_hidden=bool(logits_chunk),
-        scan_layers=scan_layers, accum_stack_grads=accum_stack_grads)
+        scan_layers=scan_layers, accum_stack_grads=accum_stack_grads, **extra)
     labels = labels[:, 1:]
     mask = labels != IGNORE_LABEL
     safe = labels.masked_fill(~mask, 0)
     mask = mask.float()
-    denom = torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum()
+    if shard is not None:
+        count = shard.data_sum(count)
+    denom = torch.clamp(count, min=1.0)
     out = out[:, :-1]
     if not logits_chunk:
-        ll = F.cross_entropy(out.reshape(-1, out.shape[-1]), safe.reshape(-1),
-                             reduction="none")
+        ll = tp.cross_entropy(out.reshape(-1, out.shape[-1]), safe.reshape(-1))
         return (ll * mask.reshape(-1)).sum() / denom
     head = {k: params[k] for k in ("embed", "lm_head") if k in params}
     total = torch.zeros((), dtype=torch.float32, device=out.device)
     for c0 in range(0, out.shape[1], logits_chunk):
         c = slice(c0, c0 + logits_chunk)
-        args = (head, out[:, c], safe[:, c], mask[:, c])
+        args = (head, out[:, c], safe[:, c], mask[:, c], tp)
         if torch.is_grad_enabled():
             total = total + checkpoint(_chunk_loss, *args, use_reentrant=False)
         else:
@@ -308,6 +328,7 @@ def make_train_step(
     remat: str = "auto",
     scan_layers: bool = True,
     stack_grad: str = "auto",  # "auto" | "scan" | "accum" (llama_forward's accum_stack_grads)
+    shard=None,  # parallel.training.TrainShards: a rank's step on a mesh
 ) -> Callable:
     """``step(params, opt_state, batch) -> (params, opt_state, loss)``: one
     forward, backward and update, in place.
@@ -316,7 +337,10 @@ def make_train_step(
     ``LONG_SEQ_THRESHOLD`` and above, blockwise attention, per-layer
     recompute and the chunked-vocab loss.  ``stack_grad="auto"`` takes
     ``accum_stack_grads`` for long sequences over the stacked layout, as
-    JAX does (here it is the same per-layer recompute)."""
+    JAX does (here it is the same per-layer recompute).
+
+    With ``shard`` the step takes and returns a rank's shards (grouped
+    layout) and returns the global loss."""
 
     def step(params, opt_state: OptState, batch):
         seq = batch["input_ids"].shape[1]
@@ -327,28 +351,19 @@ def make_train_step(
         loss = causal_lm_loss(
             params, batch, cfg, attn_impl=impl, remat=rm and not accum,
             logits_chunk=LOGITS_CHUNK if long else 0, scan_layers=scan_layers,
-            accum_stack_grads=accum)
-        optimizer.update(torch.autograd.grad(loss, opt_state.leaves, materialize_grads=True),
-                         opt_state)
-        return params, opt_state, loss.detach()
+            accum_stack_grads=accum, shard=shard)
+        grads = torch.autograd.grad(loss, opt_state.leaves, materialize_grads=True)
+        if shard is None:
+            optimizer.update(grads, opt_state)
+            return params, opt_state, loss.detach()
+        optimizer.update(shard.reduce_grads(grads, params), opt_state,
+                         shard.global_norm_fn(params))
+        return params, opt_state, shard.data_sum(loss)
 
     return step
 
 
 # ----------------------------------------------------------------- loop
-
-
-def check_single_device(mesh=None, shard_mode: str = "fsdp") -> None:
-    """The port trains on one card: a mesh, the 2-D ``fsdp_tp`` sharding or
-    a multi-process run raise (tensor parallelism over NCCL is a later
-    item of ROADMAP.md queue 1)."""
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        world = max(world, torch.distributed.get_world_size())
-    if mesh is not None or shard_mode != "fsdp" or world > 1:
-        raise NotImplementedError(
-            "the port trains on one card: meshes, shard_mode='fsdp_tp' and multi-process runs "
-            "wait for tensor parallelism over NCCL (ROADMAP.md queue 1)")
 
 
 def train_loop(
@@ -373,31 +388,66 @@ def train_loop(
     step) is saved every ``save_steps`` and at the end, and, when
     ``resume`` finds a checkpoint, restored: the run continues on the same
     trajectory, the data cursor replayed by skipping trained batches.
-    ``mesh`` must be None and ``shard_mode`` ``"fsdp"`` (one card)."""
+
+    ``mesh`` (``parallel.make_mesh``): every rank calls this with the full
+    ``params`` and its own ``batches``, keeps its ``shard_mode`` shards
+    (``"fsdp"`` or ``"fsdp_tp"``; ``parallel/training.py``), logs the
+    global loss, and gets back the whole trained params; rank 0 writes the
+    checkpoints, as whole tensors in the single-device layout.  ``device``
+    must be the mesh's device type."""
     from .checkpoint import latest_step, restore_train_state, save_train_state
     from .data import pad_collate
 
-    check_single_device(mesh, shard_mode)
     dev = resolve_device(device)
+    shard = None
+    if mesh is not None:
+        from ..parallel.training import TrainShards
+
+        if mesh.device.type != dev.type:
+            raise ValueError(f"mesh on {mesh.device}, train_loop asked for {dev}")
+        dev = mesh.device
+        shard = TrainShards(mesh, shard_mode, params)
     tc = tc or TrainConfig()
     collate = collate or (lambda ex: pad_collate(ex, max_len=tc.seq_len))
     optimizer = make_optimizer(tc)
     restored = None
     if checkpoint_dir and resume and latest_step(checkpoint_dir) is not None:
-        restored = restore_train_state(checkpoint_dir, device=dev)
+        restored = restore_train_state(checkpoint_dir, device=dev, mesh=mesh,
+                                       shard_mode=shard_mode)
         params = restored["params"]
-    params = group_layer_params(tree_map(lambda a: a.detach().to(dev), params), cfg.num_layers)
+
+    def local(tree):
+        """The trainer's layout: this rank's shards (restored trees come
+        cut), one group per layer."""
+        tree = tree_map(lambda a: a.detach().to(dev), tree)
+        if shard is not None and restored is None:
+            tree = shard.cut(tree)
+        return group_layer_params(tree, cfg.num_layers)
+
+    params = local(params)
     opt_state = optimizer.init(params)
     start_step = 0
     if restored is not None:
         moments = restored["opt_state"]
-        opt_state.load_moments({"count": moments["count"],
-                                "mu": group_layer_params(moments["mu"], cfg.num_layers),
-                                "nu": group_layer_params(moments["nu"], cfg.num_layers)})
+        opt_state.load_moments({"count": moments["count"], "mu": local(moments["mu"]),
+                                "nu": local(moments["nu"])})
         start_step = int(restored["step"])
         if log is not None:
             log({"resumed_at_step": start_step})
-    step_fn = make_train_step(cfg, optimizer, tc.attn_impl, tc.remat)
+    step_fn = make_train_step(cfg, optimizer, tc.attn_impl, tc.remat, shard=shard)
+
+    def save(step: int) -> None:
+        if shard is None:
+            save_train_state(checkpoint_dir, params, opt_state, step)
+            return
+        moments = opt_state.moments()
+        whole = {"count": moments["count"]}
+        for name in ("mu", "nu"):
+            whole[name] = shard.full(ungroup_layer_params(moments[name]))
+        full = shard.full(ungroup_layer_params(params))
+        if shard.is_writer:
+            save_train_state(checkpoint_dir, full, whole, step)
+        shard.barrier()
 
     history: Dict[str, list] = {"text_loss": [], "audio_loss": []}
     start = time.monotonic()
@@ -416,8 +466,11 @@ def train_loop(
         if log is not None and step_idx % tc.log_every == 0:
             log({"step": step_idx, stream: loss_val, "elapsed_s": time.monotonic() - start})
         if checkpoint_dir and step_idx > 0 and (step_idx + 1) % tc.save_steps == 0:
-            save_train_state(checkpoint_dir, params, opt_state, step_idx + 1)
+            save(step_idx + 1)
         step_idx += 1
     if checkpoint_dir and step_idx > start_step:
-        save_train_state(checkpoint_dir, params, opt_state, step_idx)
-    return ungroup_layer_params(params), history
+        save(step_idx)
+    out = ungroup_layer_params(params)
+    if shard is not None:
+        out = shard.full(tree_map(torch.Tensor.detach, out))
+    return out, history

@@ -224,12 +224,20 @@ def test_grouped_grad_step_matches_monolithic(jparams):
 
 
 def test_one_card_only(jparams, monkeypatch):
-    """Meshes, 2-D sharding and multi-process runs raise, naming the TP item."""
+    """Without a mesh the trainer runs on one device, whatever
+    ``shard_mode`` or ``WORLD_SIZE`` say (the sharded path is
+    ``tests/test_torch_multiprocess.py``); an unknown mode on a mesh and a
+    mesh on another device raise."""
+    from project_morpheus_tpu_torch.parallel import make_mesh as port_mesh
+
     args = (_carry(jparams), CFG, iter([]))
-    for kw in (dict(mesh=object()), dict(shard_mode="fsdp_tp")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpre.train_loop(*args, device="cpu", **kw)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="multi-process"):
-        tpre.train_loop(*args, device="cpu")
+    for kw in (dict(shard_mode="fsdp_tp"), dict()):
+        _, hist = tpre.train_loop(*args, device="cpu", **kw)
+        assert hist == {"text_loss": [], "audio_loss": []}
+    with pytest.raises(ValueError, match="unknown sharding mode"):
+        tpre.train_loop(*args, device="cpu", mesh=port_mesh(device="cpu"), shard_mode="zero")
+    with pytest.raises(ValueError, match="mesh on"):
+        tpre.train_loop(*args, device="cpu", mesh=port_mesh(device="meta"))
+    assert not hasattr(tpre, "check_single_device")
     assert dataclasses.asdict(tpre.TrainConfig()) == dataclasses.asdict(jpre.TrainConfig())
