@@ -19,7 +19,13 @@ Phases, each raising on failure (exit code 1, no result lines):
    twin, and timed from CUDA graphs with a small dependent add between
    calls (less the add's own time: the kernel starts before the one ahead
    of it ends) beside its bound, its twin (the cast + matmul it replaces)
-   and ``torch.matmul`` on a pre-cast bf16 weight;
+   and ``torch.matmul`` on a pre-cast bf16 weight; then the chunk-prefill
+   attention kernel (``prefill_chunk_attention``) at the 3B head shape:
+   C = 1024 at hist 1024, 4096 and 8192 and C = 512 at hist 8192, J = 1
+   and 4, int8 and bf16 caches, garbage past each frontier, against its
+   twin, each shape timed from a CUDA graph of 28 calls beside its bound
+   (causal operations against bytes) and, for bf16, SDPA with the same
+   causal mask over the gathered history;
 3. hold the port's decode path on the card (bf16, int8 weights, CUDA
    kernels, int8 and bf16 caches) against the same path on the CPU (fp32,
    plain twins) on a small model; then serve seeded requests on that model
@@ -33,7 +39,11 @@ Phases, each raising on failure (exit code 1, no result lines):
    must run J-batched prefill rounds; then the first load again with
    ``frames_per_dispatch=2``, whose traces must equal the first run's.
    Each load prints ms per decode step, TTFA and real-time factor, and
-   runs once more under the torch profiler for the device's idle share;
+   runs once more under the torch profiler for the device's idle share.
+   Prefill rounds replay the CUDA graphs ``warmup`` captured (printed: how
+   many, the graph pool's bytes; none captured after warmup; the replays,
+   host and device ms a round); the first load runs again, seeded and
+   greedy, with prefill rounds eager: the same tokens;
 5. serve the 3B widths at 4 layers with a bf16 cache and
    ``attn_impl="kernel"``, so the layered kernel runs in decode;
 6. answer one ``POST /v1/audio/speech`` from the port's server on
@@ -83,8 +93,8 @@ Phases, each raising on failure (exit code 1, no result lines):
    orchestrator's timeline replays to the ring's PCM; the watermark
    embedded in six served utterances is detected with its key only;
    (b) on a world of one over NCCL, the 3B int8 engine on a 1 x 1 mesh,
-   its collectives captured in CUDA graphs: phase 4's seeded traces must
-   equal the unsharded engine's; (c) two ranks on the one card over gloo
+   its collectives captured in CUDA graphs, prefill rounds too: phase 4's
+   seeded traces must equal the unsharded engine's; (c) two ranks on the one card over gloo
    (``tp2_main``), Orpheus-3B at full width, int8 weights and KV, tp = 2,
    the slot kernel on each rank's 4 kv heads: every sharded GEMV shape and
    the slot kernel against their twins, one decode step's logits against
@@ -104,7 +114,8 @@ load and just before phase 9's mesh engine (b) and each rank's TP engine
 (c), and read just after each; launches inside replayed
 CUDA graphs are counted through each graph's tally.  The last lines are the
 GEMV's device ms a frame in the k=1 serving load, the card's name and power
-limit, one JSON line describing every kernel (this slice adds none), and
+limit, one JSON line describing every kernel (the chunk-prefill attention
+the fourth), and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout of the repository, it exits non-zero before printing any result.
 """
@@ -408,6 +419,39 @@ def phase_gemv(torch, dev):
                 shapes=recs)
 
 
+def phase_prefill_kernel(torch, dev):
+    """The chunk-prefill attention kernel against its twin at the 3B shapes
+    (H=24, KV=8, HD=128; 28 layers x 8 slots x 8192), through
+    ``time_kernels.prefill_timings``: C = 1024 at hist 1024, 4096 and 8192
+    and C = 512 at hist 8192, each job's chunk the bucket's last, J = 1 and
+    4 jobs on spread slots, int8 and bf16 caches, garbage past each
+    frontier, layers 0 and 27; each shape timed (device ms from a CUDA graph
+    of 28 calls, one a layer) beside its bound, the bf16 ones beside SDPA.
+    Returns the kernel record, headed by bf16, J = 4, C = 1024, hist 8192."""
+    from project_morpheus_tpu_torch.tools import time_kernels as tk
+
+    shapes = tk.prefill_timings(torch, dev, check_close)
+    for name, rec in shapes.items():
+        b_ms, b_by = bound(*tk.prefill_work(rec["J"], rec["C"], rec["hist"], rec["quant"]))
+        rec.update(bound_ms=b_ms, bound_by=b_by, bound_frac=b_ms / rec["device_ms"])
+        extra = "".join(f", {what} {rec[k]:.4f} ms" for k, what in
+                        (("library_ms", "sdpa"), ("plain_ms", "twin")) if rec[k] is not None)
+        log(f"  prefill_chunk_attention [{name}]: device {rec['device_ms']:.4f} ms/call, "
+            f"host {rec['host_us']:.1f} us/call, bound {b_ms:.4f} ms by {b_by} "
+            f"({100 * rec['bound_frac']:.1f}%){extra}")
+    head = next(r for r in shapes.values() if r["plain_ms"] is not None)
+    err = max(r["err"] for r in shapes.values())
+    log(f"kernel prefill_chunk_attention: max_abs_err {err:.3e} over {len(shapes)} shapes x "
+        f"2 layers")
+    return dict(name="prefill_chunk_attention", route="cuda",
+                source="project_morpheus_tpu_torch/ops/csrc/prefill_chunk_attention.cu",
+                replaces="project_morpheus_tpu/model/llama.py:643 (_chunk_streaming_attn, jnp "
+                         "fused by XLA into the jitted prefill; not a Pallas kernel)",
+                launches=0, max_abs_err=err, ms=head["device_ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=head["library_ms"], shapes=shapes)
+
+
 # ------------------------------------------------------------ phase 3
 
 
@@ -496,14 +540,16 @@ def check_pcm(np, pcm: bytes, hops: int, hop_bytes: int, what: str):
         raise AssertionError(f"{what}: silent PCM")
 
 
-async def serve(prompts, max_tokens, seeds=None):
-    """Pull every prompt through its own adapter; returns ([(pcm, ttfa)],
-    wall seconds, [token trace of each request])."""
+async def serve(prompts, max_tokens, seeds=None, temperature=None):
+    """Pull every prompt through its own adapter (at ``temperature``, else
+    the default); returns ([(pcm, ttfa)], wall seconds, [token trace of
+    each request])."""
     from project_morpheus_tpu_torch.adapters.local_torch import LocalTorchAdapter
     from project_morpheus_tpu_torch.model.sampling import SamplingParams
 
     seeds = seeds or [None] * len(prompts)
-    adapters = [LocalTorchAdapter(p, sampling=SamplingParams(max_tokens=max_tokens, seed=s))
+    temp = {} if temperature is None else {"temperature": temperature}
+    adapters = [LocalTorchAdapter(p, sampling=SamplingParams(max_tokens=max_tokens, seed=s, **temp))
                 for p, s in zip(prompts, seeds)]
     t0 = time.perf_counter()
     out = await asyncio.gather(*[pull_all(a) for a in adapters])
@@ -519,12 +565,13 @@ async def serve(prompts, max_tokens, seeds=None):
     return out, wall, traces
 
 
-async def measured_load(torch, engine, prompts, max_tokens, seeds, what, card):
+async def measured_load(torch, engine, prompts, max_tokens, seeds, what, card,
+                        temperature=None):
     """Serve one seeded load: ms per decode step, TTFA and real-time factor
     on the host clock.  Returns ([(pcm, ttfa)], token traces)."""
     steps0 = engine.steps
     torch.cuda.synchronize()
-    out, wall, traces = await serve(prompts, max_tokens, seeds)
+    out, wall, traces = await serve(prompts, max_tokens, seeds, temperature)
     torch.cuda.synchronize()
     steps = engine.steps - steps0
     audio_s = sum(len(p) for p, _ in out) / 2 / 24000
@@ -603,8 +650,10 @@ async def serving_phases(card: str, records) -> str:
     from project_morpheus_tpu_torch.model.tokenizer import format_prompt_ids
     from project_morpheus_tpu_torch.ops import decode_attention as da
     from project_morpheus_tpu_torch.ops import int8_gemv as ig
+    from project_morpheus_tpu_torch.ops import prefill_attention as pa
     from project_morpheus_tpu_torch.tools.profile_serving import (
-        BURST_PROMPT, LONG_PROMPT, PROMPTS, TOKENS_PER_REQUEST, serving_runtime, warm)
+        BURST_PROMPT, LONG_PROMPT, PROMPTS, TOKENS_PER_REQUEST, round_timer, serving_runtime,
+        warm)
 
     # phase 4: the 3B int8 serving path (the workload profile_serving traces)
     t0 = time.perf_counter()
@@ -619,24 +668,69 @@ async def serving_phases(card: str, records) -> str:
         raise AssertionError(f"long prompt is {n_long} tokens")
     eng = rt3.engine
     n, secs = warm(eng)
+    prefill_keys = {k for k in eng.programs.graph_keys if k[0] == "prefill"}
+    captures0 = eng.programs.captures
     log(f"warmup (frames_per_dispatch=1): {n} programs in {secs:.2f} s, "
-        f"{eng.programs.captures} CUDA graphs captured")
+        f"{eng.programs.captures} CUDA graphs captured, {len(prefill_keys)} of them prefill "
+        f"rounds (J up to {eng._max_batch_j}); graph pool {eng.programs.pool_bytes() / 2**30:.3f} "
+        f"GiB, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved in all [{card}]")
     fs = rt3.snac_cfg.frame_samples
+
+    def prefill_replays():
+        return sum(c for k, c in eng.programs.replayed.items() if k[0] == "prefill")
 
     da.reset_launch_counts()
     ig.reset_launch_counts()
-    out, traces1 = await measured_load(torch, eng, prompts, TOKENS_PER_REQUEST, seeds,
-                                       "k=1 (main path)", card)
-    launches = {**da.LAUNCHES, **ig.LAUNCHES}
+    pa.reset_launch_counts()
+    replays0 = prefill_replays()
+    with round_timer(eng) as rounds:
+        out, traces1 = await measured_load(torch, eng, prompts, TOKENS_PER_REQUEST, seeds,
+                                           "k=1 (main path)", card)
+    launches = {**da.LAUNCHES, **ig.LAUNCHES, **pa.LAUNCHES}
     for i, (pcm, _) in enumerate(out):
         check_pcm(np, pcm, TOKENS_PER_REQUEST // 7, 2 * fs, f"3b request {i}")
-    for name in ("decode_attention_int8_slots", "int8_gemv"):
+    for name in ("decode_attention_int8_slots", "int8_gemv", "prefill_chunk_attention"):
         if launches[name] <= 0:
             raise AssertionError(f"3b int8 serving never launched {name}: {launches}")
     records[0]["launches"] = launches["decode_attention_int8_slots"]
     records[2]["launches"] = launches["int8_gemv"]
+    records[3]["launches"] = launches["prefill_chunk_attention"]
+    n_rounds = max(rounds["rounds"], 1)
+    records[3]["serving_round_ms"] = dict(rounds=rounds["rounds"],
+                                         host=rounds["host_s"] / n_rounds * 1e3,
+                                         device=rounds["device_s"] / n_rounds * 1e3)
     log(f"  main path launches (graph replays counted) {launches}, graphs replayed "
-        f"{eng.programs.replays} [{card}]")
+        f"{eng.programs.replays}, prefill rounds {rounds['rounds']} (replayed "
+        f"{prefill_replays() - replays0}): host {rounds['host_s'] / n_rounds * 1e3:.2f} ms a "
+        f"round, device {rounds['device_s'] / n_rounds * 1e3:.2f} ms a round [{card}]")
+    if prefill_replays() - replays0 <= 0:
+        raise AssertionError("the main path replayed no prefill round")
+
+    # the same load with prefill rounds eager, seeded and greedy: the same tokens
+    greedy = {}
+    for graphs in (True, False):
+        eng.prefill_graphs = graphs
+        with round_timer(eng) as rounds:
+            _, greedy[graphs] = await measured_load(
+                torch, eng, prompts, TOKENS_PER_REQUEST, seeds,
+                f"greedy, prefill rounds {'replayed' if graphs else 'eager'}", card,
+                temperature=0.0)
+        log(f"  greedy, prefill rounds {'replayed' if graphs else 'eager'}: host "
+            f"{rounds['host_s'] / max(rounds['rounds'], 1) * 1e3:.2f} ms a round, device "
+            f"{rounds['device_s'] / max(rounds['rounds'], 1) * 1e3:.2f} ms a round [{card}]")
+    with round_timer(eng) as rounds:
+        _, traces_eager = await measured_load(torch, eng, prompts, TOKENS_PER_REQUEST, seeds,
+                                              "k=1, prefill rounds eager", card)
+    eng.prefill_graphs = True
+    records[3]["eager_round_ms"] = dict(host=rounds["host_s"] / max(rounds["rounds"], 1) * 1e3,
+                                        device=rounds["device_s"] / max(rounds["rounds"], 1) * 1e3)
+    if traces_eager != traces1 or greedy[True] != greedy[False] or any(
+            len(t) == 0 for t in traces1 + greedy[True]):
+        raise AssertionError("traces differ between prefill rounds replayed and eager")
+    log(f"  prefill rounds eager: host {records[3]['eager_round_ms']['host']:.2f} ms a round, "
+        f"device {records[3]['eager_round_ms']['device']:.2f} ms a round; seeded "
+        f"({sum(map(len, traces1))} tokens) and greedy ({sum(map(len, greedy[True]))}) traces "
+        f"equal to the replayed rounds' [{card}]")
     steps0 = eng.steps
     _, trace = await idle_share(torch, prompts, TOKENS_PER_REQUEST, seeds, "k=1", card)
     kn, nk = gemv_ms_a_frame(trace, max(1, (eng.steps - steps0) // eng.steps_per_sync))
@@ -660,7 +754,12 @@ async def serving_phases(card: str, records) -> str:
                if j > 1 and c > rounds0.get(j, 0)}
     if not batched:
         raise AssertionError(f"the burst ran no J-batched prefill round: {dict(eng.prefill_rounds)}")
-    log(f"  J-batched prefill rounds in the burst (width: rounds): {batched}")
+    new_prefill = {k for k in eng.programs.graph_keys if k[0] == "prefill"} - prefill_keys
+    if new_prefill:
+        raise AssertionError(f"prefill rounds captured after warmup: {sorted(new_prefill)}")
+    log(f"  J-batched prefill rounds in the burst (width: rounds): {batched}; CUDA graphs "
+        f"captured since warmup: {eng.programs.captures - captures0} (prefill rounds: 0) "
+        f"[{card}]")
     await idle_share(torch, burst, 7 * 12, burst_seeds, "burst", card)
 
     # the same seeded load, up to two frames a dispatch
@@ -1829,6 +1928,7 @@ async def phase_mesh_serving(card: str, torch, records) -> None:
     from project_morpheus_tpu_torch.engine import OrpheusEngine
     from project_morpheus_tpu_torch.ops import decode_attention as da
     from project_morpheus_tpu_torch.ops import int8_gemv as ig
+    from project_morpheus_tpu_torch.ops import prefill_attention as pa
     from project_morpheus_tpu_torch.parallel import make_mesh
     from project_morpheus_tpu_torch.parallel.mesh import STATE
     from project_morpheus_tpu_torch.tools.profile_serving import (
@@ -1846,22 +1946,29 @@ async def phase_mesh_serving(card: str, torch, records) -> None:
     runtime.engine = mesh_eng
     da.reset_launch_counts()
     ig.reset_launch_counts()
+    pa.reset_launch_counts()
     torch.cuda.synchronize()
     _, wall_m, got = await serve(list(PROMPTS), TOKENS_PER_REQUEST, seeds)
     torch.cuda.synchronize()
-    launches = {**da.LAUNCHES, **ig.LAUNCHES}
+    launches = {**da.LAUNCHES, **ig.LAUNCHES, **pa.LAUNCHES}
     if got != ref or any(len(t) == 0 for t in ref):
         where = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
                  for a, b in zip(ref, got)]
         raise AssertionError(f"mesh engine traces differ from the unsharded engine's: {where}")
     if mesh_eng.programs.captures == 0 or mesh_eng.programs.replays == 0:
         raise AssertionError("the mesh engine over NCCL captured or replayed no CUDA graph")
-    if launches["decode_attention_int8_slots"] <= 0 or launches["int8_gemv"] <= 0:
+    prefill = {k for k in mesh_eng.programs.graph_keys if k[0] == "prefill"}
+    if not prefill:
+        raise AssertionError("the mesh engine over NCCL captured no prefill round")
+    if min(launches[k] for k in ("decode_attention_int8_slots", "int8_gemv",
+                                 "prefill_chunk_attention")) <= 0:
         raise AssertionError(f"mesh engine launches {launches}")
     records[0]["mesh_launches"] = launches["decode_attention_int8_slots"]
     records[2]["mesh_launches"] = launches["int8_gemv"]
+    records[3]["mesh_launches"] = launches["prefill_chunk_attention"]
     log(f"mesh (b): 3B int8 engine on a 1 x 1 mesh over {STATE.backend} (world of one, "
         f"collectives in the {mesh_eng.programs.captures} captured graphs, "
+        f"{len(prefill)} of them prefill rounds, "
         f"{mesh_eng.programs.replays} replays): phase 4's 4 seeded traces "
         f"({sum(map(len, got))} tokens) equal the unsharded engine's; {wall_m:.2f} s vs "
         f"{wall_b:.2f} s unsharded (graphs captured on first use in both); launches {launches} "
@@ -1924,21 +2031,32 @@ def _tp_arithmetic(params, tp: int = 2):
                                   v[one, ..., dims].contiguous(), sc.contiguous(), live, 0))
         return torch.cat(out, 1)
 
-    def chunk_attn(qg, k_s, v_s, ks_s, vs_s, *args, **kwargs):
-        return torch.cat([saved_chunk(
-            qg[:, b].contiguous(), k_s[b], v_s[b], None if ks_s is None else ks_s[b],
-            None if vs_s is None else vs_s[b], *args, **kwargs)
-            for b in blocks(qg.shape[1])], -1)
+    def chunk_attn(q, layer, slots, offsets, hist_bucket):
+        J, C, H, HD = q.shape
+        quant_kv = "scale" in layer
+        KV = layer["k"].shape[-1] // HD if quant_kv else layer["k"].shape[1]
+        out = []
+        for hb, kb in zip(blocks(H), blocks(KV)):
+            if quant_kv:
+                dims = slice(kb.start * HD, kb.stop * HD)
+                sc = layer["scale"]
+                part = {"k": layer["k"][..., dims], "v": layer["v"][..., dims],
+                        "scale": torch.cat([sc[..., kb], sc[..., KV + kb.start:KV + kb.stop]], -1)}
+            else:
+                part = {"k": layer["k"][:, kb], "v": layer["v"][:, kb]}
+            part = {n: t.contiguous() for n, t in part.items()}
+            out.append(saved_chunk(q[:, :, hb].contiguous(), part, slots, offsets, hist_bucket))
+        return torch.cat(out, -1)
 
     saved = quant.int8_gemv, quant.dequant_matmul
-    saved_slot, saved_chunk = llama.decode_attention_int8_slots, llama._chunk_streaming_attn
+    saved_slot, saved_chunk = llama.decode_attention_int8_slots, llama.prefill_chunk_attention
     quant.int8_gemv, quant.dequant_matmul = (product(f) for f in saved)
-    llama.decode_attention_int8_slots, llama._chunk_streaming_attn = slot_kernel, chunk_attn
+    llama.decode_attention_int8_slots, llama.prefill_chunk_attention = slot_kernel, chunk_attn
     try:
         yield
     finally:
         quant.int8_gemv, quant.dequant_matmul = saved
-        llama.decode_attention_int8_slots, llama._chunk_streaming_attn = saved_slot, saved_chunk
+        llama.decode_attention_int8_slots, llama.prefill_chunk_attention = saved_slot, saved_chunk
 
 
 def tp2_main(device: str = "cuda", cfg=None) -> int:
@@ -2301,6 +2419,7 @@ def run(card: str) -> None:
     records = phase_kernels(torch, da, dev)
     phase_1b_heads(torch, da, dev)
     records.append(phase_gemv(torch, dev))
+    records.append(phase_prefill_kernel(torch, dev))
     phase_reference(torch, dev)
     phase_graphs(torch, dev)
 

@@ -10,7 +10,11 @@
   plan is frozen at admission.  At most one chunk round runs between
   decode frames; jobs in lockstep (a simultaneous burst) share one round
   at a power-of-two width.  Final chunks sample the first tokens on the
-  device; they ride the next frame's readback.
+  device; they ride the next frame's readback.  Each round is a program
+  keyed as JAX keys its jitted chunk programs (chunk width, history
+  bucket, final, J, ...): on the card a CUDA graph that ``warmup``
+  captures, its inputs staged into the key's static buffers; ``warmup``
+  also caps the lockstep width at the widest J it ran.
 - **Decode** is one fused frame program (``_frame_program``) of
   ``n_frames`` x ``steps_per_sync`` decode + sample + stop/budget + code
   ring steps and, in audio mode, one batched streaming SNAC hop per frame
@@ -39,7 +43,9 @@
   host all-reduce that agrees the admissions, cancellations, backpressure
   gate and shutdown; everything after it is determined by tokens.  Frame
   programs are CUDA graphs over NCCL (captured collectives) and run
-  eagerly over gloo, which cannot be captured.
+  eagerly over gloo, which cannot be captured; prefill rounds likewise,
+  and they stay eager under ``data`` > 1, where the jobs a rank's cache
+  holds change a round's shape.
 """
 from __future__ import annotations
 
@@ -60,7 +66,7 @@ from ..model.quant import fuse_layer_weights, is_quantized
 from ..model.sampling import SamplingParams, sample_logits
 from ..parallel.tensor import NO_TP, tensor_parallel
 from ..utils.device import resolve_device
-from .graphs import ProgramCache
+from .graphs import ProgramCache, StaticInputs
 from .request import Request, RequestState
 
 _AUDIO_BASE = ORPHEUS_SPECIAL_TOKENS["audio_base"]
@@ -218,8 +224,10 @@ class OrpheusEngine:
         self.seeds = torch.zeros(B, dtype=torch.int64, device=dev)
         self.draws = torch.zeros(B, dtype=torch.int64, device=dev)
         self._seed_gen = torch.Generator().manual_seed(seed)
-        # static inputs of the frame programs
-        self._gate = torch.ones(B, dtype=torch.bool, device=dev)
+        # static inputs of the frame programs: the backpressure gate
+        self._gate_in = StaticInputs([((B,), torch.bool)], dev)
+        self._gate = self._gate_in.bufs[0]
+        self._gate.fill_(True)
         self._rows = torch.arange(B, device=dev)
         self._snac_state = None
         if self._codec is not None:
@@ -244,6 +252,14 @@ class OrpheusEngine:
             logger.info("mesh engine over gloo: frame programs run eagerly (gloo collectives "
                         "cannot be captured in CUDA graphs)")
         self.programs = ProgramCache(self.device, graphs=graphs)
+        # prefill rounds as programs (graphs on the card): off runs them
+        # eagerly, as a data split does
+        self.prefill_graphs = True
+        self._data_split = mesh is not None and mesh.shape["data"] > 1
+        # static input buffers of each prefill program, by key
+        self._prefill_inputs: Dict[tuple, StaticInputs] = {}
+        # widest lockstep round warmup ran (0: uncapped, as before a warmup)
+        self._max_batch_j = 0
         # slots whose cancellation waits for the next lockstep agreement
         self._cancel_slots: set = set()
         self._agreed_pending = 0
@@ -342,9 +358,11 @@ class OrpheusEngine:
                burst: int = 1) -> int:
         """Build the CUDA kernels and run every serving program a workload
         of ``prompt_lens`` x ``max_new_tokens`` can reach: each prefill
-        shape once at the power-of-two widths J up to ``burst``, and each
+        round once at the power-of-two widths J up to ``burst``, and each
         frame program of every context bucket a stream crosses, at k = 1
         and ``frames_per_dispatch`` (on the card, captured as CUDA graphs).
+        Lockstep rounds are then capped at the widest J run, as in JAX, so
+        a wider burst lands on a warmed program.
 
         Uses the chunk plan and bucket arithmetic of serving, runs on the
         idle slot table with every lane inactive and releases every slot
@@ -359,6 +377,7 @@ class OrpheusEngine:
         cbuckets = sorted(b for b in self.ecfg.context_buckets if b <= self.ecfg.max_seq_len)
         burst = max(1, min(burst, self.ecfg.max_slots))
         js = {1 << i for i in range(burst.bit_length()) if (1 << i) <= burst}
+        self._max_batch_j = max(js)
         audio = self._codec is not None
         ks = sorted({1, k_max}) if audio else [1]
         chunk_programs, frame_programs = set(), set()
@@ -379,14 +398,19 @@ class OrpheusEngine:
                     frame_programs.update((b, k) for k in ks)
                 if b >= end:
                     break
+        # on the card each program runs twice: its capture, then a first
+        # replay, whose one-time launch costs then fall in warmup
+        runs = 2 if self.programs.graphs else 1
         for clen, hist, final, j in sorted(chunk_programs):
             jobs = [{"ids": [0], "offset": 0, "slot": s, "seed": 0, "allowed": 1,
                      "audio": False, "samp": (0.6, 0.9, 1.1),
                      "stops": np.full((_MAX_CUSTOM_STOPS,), -1, np.int32)} for s in range(j)]
-            self._prefill_round(jobs, clen, hist, final)
+            for _ in range(runs):
+                self._prefill_round(jobs, clen, hist, final)
         self._gate.fill_(True)
         for b, k in sorted(frame_programs):
-            self._run_program(b, k, audio)
+            for _ in range(runs):
+                self._run_program(b, k, audio)
         self._release_all()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -444,6 +468,10 @@ class OrpheusEngine:
         self._clear_slots(slice(None))
         self.seeds.zero_()
         self.draws.zero_()
+        # warmup's sampled tokens too (JAX keeps them): a frame's decode of
+        # an idle lane writes K/V from its last token at position lengths = 0
+        # (ROADMAP queue 3), so what it writes must not depend on warmup
+        self.last_tokens.zero_()
 
     def _admit(self, req: Request) -> None:
         # the seed fixes the slot's whole sampling stream
@@ -522,9 +550,10 @@ class OrpheusEngine:
     def _advance_prefill(self) -> None:
         """Run at most ONE chunk round: the oldest live job and every job in
         lockstep with it (same next chunk), at the largest power-of-two
-        width the group fills.  Final rounds leave their first tokens on
-        the device in ``_pending_first``.  Prefill rounds run eagerly, so a
-        width that ``warmup`` did not run compiles nothing."""
+        width the group fills, capped at the widest width ``warmup`` ran
+        (JAX ``engine.py:1289-1290``), so a burst wider than warmup planned
+        lands on a captured program; the rest go next round.  Final rounds
+        leave their first tokens on the device in ``_pending_first``."""
         if self._pending_lane_resets:
             from ..codec.stream_decode import reset_lanes
 
@@ -540,7 +569,10 @@ class OrpheusEngine:
             return
         desc = self._job_next(self._prefill_jobs[0])
         group = [j for j in self._prefill_jobs if self._job_next(j) == desc]
-        group = group[: 1 << (len(group).bit_length() - 1)]
+        take = 1 << (len(group).bit_length() - 1)
+        if self._max_batch_j:
+            take = min(take, self._max_batch_j)
+        group = group[:take]
         final, clen, hist = desc
         first = self._prefill_round(group, clen, hist, final)
         if not final:
@@ -555,75 +587,112 @@ class OrpheusEngine:
 
     @torch.no_grad()
     def _prefill_round(self, group: List[dict], clen: int, hist: int,
-                       sample: bool) -> Optional[torch.Tensor]:
+                       final: bool) -> Optional[torch.Tensor]:
         """One chunk of each job in ``group`` (all at the same chunk width
         and history bucket) in one batched pass; a final round samples each
         job's first token and seeds its slot, all on the device.  Returns
-        the (J,) first tokens, or None."""
+        the (J,) first tokens, or None.
+
+        The round is the program of key ``("prefill", clen, hist, final, J,
+        banded, lenient, w8a8)`` (JAX's static arguments): the host writes
+        the jobs into that key's static buffers, on the stream, before the
+        program runs (on the card: replays), so no copy is captured.  The
+        first tokens are copied out of the program's outputs, which the
+        next round of the same key overwrites."""
         J = len(group)
-        toks = np.zeros((J, clen), np.int32)
-        lens = []
+        M = _MAX_CUSTOM_STOPS
+        # per job: chunk tokens, then length, offset, slot, context length,
+        # budget, audio flag, seed, stop ids (_prefill_program's columns)
+        ints = np.zeros((J, clen + 7 + M), np.int64)
         for i, job in enumerate(group):
-            part = job["ids"][job["offset"]: job["offset"] + clen]
-            toks[i, : len(part)] = part
-            lens.append(len(part))
-        toks_d = self._to_dev(toks, torch.int32)
-        slots = [job["slot"] for job in group]
-        # the jobs whose slots this rank's cache holds (all without a data split)
-        lo, hi = self._slots.start, self._slots.stop
-        mine = [i for i, s in enumerate(slots) if lo <= s < hi]
-        logits = None
-        if mine:
-            logits = llama_prefill_chunk_batch(
-                self.params, toks_d[mine] if len(mine) < J else toks_d, self.cfg, self.cache,
-                [group[i]["offset"] for i in mine], [slots[i] - lo for i in mine],
-                [lens[i] for i in mine], hist_bucket=hist, w8a8=self._w8a8, tp=self.tp)
+            off = job["offset"]
+            # device-indexed cache writes must stay inside the cache
+            assert off + clen <= self.ecfg.max_seq_len, (off, clen, self.ecfg.max_seq_len)
+            part = job["ids"][off: off + clen]
+            ints[i, : len(part)] = part
+            ints[i, clen: clen + 7] = (len(part), off, job["slot"], off + len(part),
+                                       job["allowed"], int(job["audio"]), job["seed"])
+            ints[i, clen + 7:] = job["stops"]
+        samp = np.asarray([job["samp"] for job in group], np.float32)
+        key = ("prefill", clen, hist, final, J, self.ecfg.banded_sampling,
+               self.ecfg.lenient_audio_codes, self._w8a8)
+        inputs = self._prefill_inputs.get(key)
+        if inputs is None:
+            inputs = self._prefill_inputs[key] = StaticInputs(
+                [(ints.shape, torch.int64), (samp.shape, torch.float32)], self.device)
+        inputs.stage((ints, samp))
+        bufs = inputs.bufs
+        mine = None
+        if self._data_split:  # the jobs whose slots this rank's cache holds
+            lo, hi = self._slots.start, self._slots.stop
+            mine = [i for i, job in enumerate(group) if lo <= job["slot"] < hi]
+        outs = self.programs.run(
+            key, lambda: self._prefill_program(bufs, clen, hist, final, mine),
+            graph=self.prefill_graphs and mine is None)
         self.prefill_rounds[J] += 1
+        return outs[0].clone() if final else None
+
+    def _prefill_program(self, bufs, clen: int, hist: int, final: bool,
+                         mine: Optional[List[int]]) -> tuple:
+        """The round itself, from the key's buffers (JAX ``_prefill_chunk`` /
+        ``_prefill_chunk_batch``): the batched chunk, the chunk's real
+        tokens marked seen, and in a final round the first tokens sampled
+        and the slots seeded.  ``mine`` (a data split only) lists the jobs
+        this rank's cache holds; None means every job.  Returns
+        ``(first tokens (J,),)`` or ``()``."""
+        ints, samp = bufs
+        J = ints.shape[0]
+        toks = ints[:, :clen]
+        lens, offs, sl = ints[:, clen], ints[:, clen + 1], ints[:, clen + 2]
+        sel = slice(None) if mine is None else torch.tensor(mine, device=self.device)
+        logits = None
+        if mine is None or mine:
+            logits = llama_prefill_chunk_batch(
+                self.params, toks[sel].int(), self.cfg, self.cache, offs[sel].int(),
+                (sl[sel] - self._slots.start).int(), lens[sel].int(), hist_bucket=hist,
+                w8a8=self._w8a8, tp=self.tp)
         # each chunk's real tokens count as seen for the repetition penalty
-        for i, (slot, n) in enumerate(zip(slots, lens)):
-            self.presence[slot, toks_d[i, :n].long()] = True
-        if not sample:
-            return None
-        # per job: slot, context length, budget, audio flag, seed, stop ids
-        ints = np.asarray(
-            [[job["slot"], job["offset"] + n, job["allowed"], int(job["audio"]), job["seed"],
-              *job["stops"]] for job, n in zip(group, lens)], np.int64)
-        ints = self._to_dev(ints, torch.int64)
-        samp = self._to_dev(np.asarray([job["samp"] for job in group], np.float32),
-                            torch.float32)
-        sl, audio = ints[:, 0], ints[:, 3].bool()
+        # (one scatter of counts: padding adds 0, so no write can disagree)
+        real = torch.arange(clen, device=self.device)[None, :] < lens[:, None]
+        seen = torch.zeros((J, self.presence.shape[1]), dtype=torch.int32, device=self.device)
+        seen.scatter_add_(1, toks, real.int())
+        self.presence[sl] = self.presence[sl] | (seen > 0)
+        if not final:
+            return ()
+        ctx, allowed, audio = ints[:, clen + 3], ints[:, clen + 4], ints[:, clen + 5].bool()
+        seeds, stops = ints[:, clen + 6], ints[:, clen + 7:]
         first = torch.full((J,), -1, dtype=torch.int32, device=self.device)
-        if mine:
-            m = torch.tensor(mine, device=self.device) if len(mine) < J else slice(None)
+        if mine is None or mine:
             if self.ecfg.banded_sampling:  # first audio codes sample from band 0
-                logits = _band_mask_logits(logits, audio[m], torch.zeros_like(ints[m, 0]))
-            first[m] = sample_logits(
-                logits, ints[m, 4], torch.zeros_like(ints[m, 4]), temperature=samp[m, 0],
-                top_p=samp[m, 1], repetition_penalty=samp[m, 2], presence=self.presence[sl[m]],
-                vocab_size=self.cfg.vocab_size)
+                logits = _band_mask_logits(logits, audio[sel], torch.zeros_like(seeds[sel]))
+            first[sel] = sample_logits(
+                logits, seeds[sel], torch.zeros_like(seeds[sel]), temperature=samp[sel, 0],
+                top_p=samp[sel, 1], repetition_penalty=samp[sel, 2],
+                presence=self.presence[sl[sel]], vocab_size=self.cfg.vocab_size)
         if self._data is not None:  # each job's token from the data rank that owns it
             from ..parallel.collectives import all_reduce
 
             all_reduce(first, self._data, torch.distributed.ReduceOp.MAX)
-        self.presence[sl, first.long()] = True
-        self.lengths[sl] = ints[:, 1].int()
+        # (device values throughout: a host scalar would be a copy in the graph)
+        self.presence[sl, first.long()] = torch.ones_like(first, dtype=torch.bool)
+        self.lengths[sl] = ctx.int()
         self.last_tokens[sl] = first
         self.temp[sl] = samp[:, 0]
         self.top_p[sl] = samp[:, 1]
         self.rep_pen[sl] = samp[:, 2]
-        self.active[sl] = ints[:, 2] > 1
-        self.remaining[sl] = (ints[:, 2] - 1).int()
+        self.active[sl] = allowed > 1
+        self.remaining[sl] = (allowed - 1).int()
         self.is_audio[sl] = audio
-        self.custom_stops[sl] = ints[:, 5:].int()
-        self.seeds[sl] = ints[:, 4]
-        self.draws[sl] = 1
+        self.custom_stops[sl] = stops.int()
+        self.seeds[sl] = seeds
+        self.draws[sl] = torch.ones_like(seeds)
         if self._codec is not None:
             # the first codes enter the ring as a decode step's would: a (B,)
             # token row with -1 for the slots outside the group
             row = torch.full((self.ecfg.max_slots,), -1, dtype=torch.int32, device=self.device)
             row[sl] = first
             self._ring_push(row, self.ecfg.lenient_audio_codes)
-        return first
+        return (first,)
 
     def _host_code(self, token: int, audio_pos: int) -> Optional[int]:
         from ..adapters.runtime import audio_code_from_token_id, lenient_audio_code
@@ -850,10 +919,7 @@ class OrpheusEngine:
                           or any(r.planner.emitted == 0 for r in audio_reqs)):
             k = self.frames_per_dispatch
         bucket = self._context_bucket(self.steps_per_sync * k)
-        if self.device.type == "cuda":
-            self._gate.copy_(torch.from_numpy(gate).pin_memory(), non_blocking=True)
-        else:
-            self._gate.copy_(torch.from_numpy(gate))
+        self._gate_in.stage((gate,))
         return self._run_program(bucket, k, audio), dict(self._by_slot)
 
     # ---------------------------------------------------------- readback

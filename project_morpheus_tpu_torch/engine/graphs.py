@@ -1,10 +1,13 @@
-"""The engine's program cache: frame programs as captured CUDA graphs.
+"""The engine's program cache: frame programs and prefill rounds as
+captured CUDA graphs.
 
 The counterpart of the JAX engine's ``jax.jit`` with ``static_argnames``: a
 program is a function of no arguments that reads and writes only tensors
 that outlive it (the slot table, the KV cache, the codec state, a static
-gate buffer), keyed as JAX keys its frame programs:
-``(bucket, attn_impl, n_steps, n_frames, audio, banded, lenient)``.
+gate buffer, a prefill round's input buffers), keyed as JAX keys its
+programs: a frame program by ``(bucket, attn_impl, n_steps, n_frames,
+audio, banded, lenient)``, a prefill round by ``("prefill", chunk_len,
+hist_bucket, final, J, banded, lenient, w8a8)``.
 
 - On the card, the first call with a key runs the function once eagerly on
   a side stream (its real work, and its outputs, are this call's) and then
@@ -29,9 +32,9 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
-from ..ops import decode_attention, int8_gemv
+from ..ops import decode_attention, int8_gemv, prefill_attention
 
-_COUNTERS = (decode_attention.LAUNCHES, int8_gemv.LAUNCHES)
+_COUNTERS = (decode_attention.LAUNCHES, int8_gemv.LAUNCHES, prefill_attention.LAUNCHES)
 
 
 def _snapshot() -> List[Dict[str, int]]:
@@ -69,10 +72,24 @@ class ProgramCache:
     def replays(self) -> int:
         return sum(self.replayed.values())
 
-    def run(self, key: tuple, fn: Callable[[], tuple]) -> tuple:
-        """Run program ``key``; ``fn`` returns a tuple of output tensors."""
+    @property
+    def graph_keys(self) -> set:
+        """Keys captured as graphs."""
+        return set(self._graphs)
+
+    def pool_bytes(self) -> int:
+        """Bytes of device memory the graphs' shared pool holds."""
+        if self._pool is None:
+            return 0
+        pool = tuple(self._pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)
+
+    def run(self, key: tuple, fn: Callable[[], tuple], graph: bool = True) -> tuple:
+        """Run program ``key``; ``fn`` returns a tuple of output tensors.
+        ``graph=False`` runs it eagerly, as without graphs."""
         self.keys.add(key)
-        if not self.graphs:
+        if not (self.graphs and graph):
             return fn()
         entry = self._graphs.get(key)
         if entry is not None:
@@ -99,3 +116,37 @@ class ProgramCache:
         self._graphs[key] = (graph, static, _tally_since(before))
         self.captures += 1
         return outs
+
+
+class StaticInputs:
+    """A program's input buffers on the device, written from host arrays
+    on the stream before each run.
+
+    On the card each buffer has two pinned host copies, used in turn: a
+    copy is written again only once the device has read it (an event a
+    turn), so staging allocates nothing and waits at most for the copy two
+    turns back.  Elsewhere the buffers are written directly."""
+
+    def __init__(self, specs, device: torch.device) -> None:
+        self.bufs = [torch.zeros(shape, dtype=dt, device=device) for shape, dt in specs]
+        self._cuda = device.type == "cuda"
+        if self._cuda:
+            self._host = [[torch.empty(shape, dtype=dt, pin_memory=True) for shape, dt in specs]
+                          for _ in range(2)]
+            self._read: List = [None, None]
+            self._turn = 0
+
+    def stage(self, arrays) -> None:
+        if not self._cuda:
+            for buf, arr in zip(self.bufs, arrays):
+                buf.copy_(torch.from_numpy(arr))
+            return
+        turn, self._turn = self._turn, self._turn ^ 1
+        if self._read[turn] is not None:
+            self._read[turn].synchronize()
+        for host, buf, arr in zip(self._host[turn], self.bufs, arrays):
+            host.numpy()[...] = arr
+            buf.copy_(host, non_blocking=True)
+        self._read[turn] = torch.cuda.Event()
+        self._read[turn].record()
+

@@ -21,8 +21,9 @@ gathered) and, without a group, compute exactly the unsharded path.
 
 Where JAX threads an immutable cache through a layer loop, the port
 updates the cache tensors IN PLACE (so a captured CUDA graph of the decode
-step writes the engine's cache where it lies); the decode-attention kernels read the
-cache where it lies (see ``ops/decode_attention.py``).  Dots that JAX runs
+step writes the engine's cache where it lies); the decode and chunk-prefill
+attention kernels read the cache where it lies (see ``ops/decode_attention.py``
+and ``ops/prefill_attention.py``).  Dots that JAX runs
 with ``preferred_element_type=float32`` run here on operands rounded to
 the model dtype and then widened to fp32, so both packages round at the
 same points and differ only in summation order.
@@ -30,7 +31,7 @@ same points and differ only in summation order.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +41,7 @@ from ..ops.decode_attention import (
     decode_attention_int8_slots,
     decode_attention_layered,
 )
+from ..ops.prefill_attention import prefill_chunk_attention
 from ..parallel.tensor import as_tp
 from .config import LlamaConfig
 from .quant import (
@@ -172,59 +174,6 @@ def lm_head_logits(params: Params, h: torch.Tensor, tp=None) -> torch.Tensor:
     return matmul_maybe_quant(h, head).float()
 
 
-def _dot_dtype(dt: torch.dtype) -> torch.dtype:
-    return torch.float32 if dt == torch.float16 else dt
-
-
-def _chunk_streaming_attn(
-    qg: torch.Tensor,      # (S, KV, G, HD) chunk queries
-    k_s: torch.Tensor,     # (KV, hist, HD) history keys (bf16 or int8)
-    v_s: torch.Tensor,
-    ks_s: Optional[torch.Tensor],  # (KV, hist) fp32 scales or None
-    vs_s: Optional[torch.Tensor],
-    positions: torch.Tensor,       # (S,) absolute positions of the queries
-    hist_bucket: int,
-    block_k: int = 256,
-    n_live: Optional[int] = None,  # live-history frontier: later blocks skipped
-) -> torch.Tensor:
-    """Online-softmax attention of a prompt chunk over its history, block by
-    block (temporaries stay at block size; int8 history dequantises per
-    block, with its scales applied to scores and probs)."""
-    S, KV, G, HD = qg.shape
-    block_k = min(block_k, hist_bucket)
-    nk = hist_bucket // block_k
-    assert nk * block_k == hist_bucket, "context buckets are 256-multiples"
-    quant = ks_s is not None
-    dot_dt = _dot_dtype(qg.dtype)
-    qb = (qg.float() * HD**-0.5).to(dot_dt).float()
-    n_blocks = nk if n_live is None else min(-(-n_live // block_k), nk)
-
-    m = torch.full((KV, G, S), -1e30, dtype=torch.float32, device=qg.device)
-    l = torch.zeros((KV, G, S), dtype=torch.float32, device=qg.device)
-    acc = torch.zeros((KV, G, S, HD), dtype=torch.float32, device=qg.device)
-    for blk in range(n_blocks):
-        sl = slice(blk * block_k, (blk + 1) * block_k)
-        kb = k_s[:, sl].to(dot_dt).float()
-        vb = v_s[:, sl].to(dot_dt).float()
-        s = torch.einsum("skgd,kbd->kgsb", qb, kb)  # (KV, G, S, block_k)
-        if quant:
-            s = s * ks_s[:, None, None, sl]
-        kp = blk * block_k + torch.arange(block_k, device=qg.device)
-        valid = kp[None, None, None, :] <= positions[None, None, :, None]
-        s = torch.where(valid, s, torch.full_like(s, -1e30))
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(dim=-1)
-        if quant:
-            p = p * vs_s[:, None, None, sl]
-        acc = acc * alpha[..., None] + torch.einsum(
-            "kgsb,kbd->kgsd", p.to(dot_dt).float(), vb)
-        m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]  # (KV, G, S, HD)
-    return out.permute(2, 0, 1, 3).reshape(S, KV * G * HD)
-
-
 # ------------------------------------------------------------------ prefill
 
 
@@ -252,15 +201,18 @@ def llama_prefill_chunk(
         hist_bucket=hist_bucket, w8a8=w8a8, tp=tp)[0]
 
 
+IndexLike = Union[torch.Tensor, Sequence[int]]
+
+
 @torch.no_grad()
 def llama_prefill_chunk_batch(
     params: Params,
     tokens: torch.Tensor,       # (J, C) int — one (padded) chunk from each of J slots
     cfg: LlamaConfig,
     cache: KVCache,             # updated in place
-    offsets: Sequence[int],     # (J,) chunk start positions
-    slots: Sequence[int],       # (J,) target cache lanes
-    lengths: Sequence[int],     # (J,) real tokens in each chunk
+    offsets: IndexLike,         # (J,) chunk start positions
+    slots: IndexLike,           # (J,) target cache lanes
+    lengths: IndexLike,         # (J,) real tokens in each chunk
     *,
     hist_bucket: int,           # attention reads cache[:hist_bucket]
     w8a8: bool = False,
@@ -268,21 +220,39 @@ def llama_prefill_chunk_batch(
 ) -> torch.Tensor:
     """One prompt chunk from EACH of J slots in one pass: the projections
     and MLP run on ``(J * C, D)`` rows, and each chunk attends only to its
-    own slot's history, so the result equals J sequential single-chunk
-    calls.  Offsets, slots and lengths are host integers (the engine's
-    chunk plan).  Returns the fp32 logits ``(J, padded_vocab)`` of each
-    chunk's last real position."""
+    own slot's history (``ops/prefill_attention.py``), so the result equals
+    J sequential single-chunk calls.  Returns the fp32 logits
+    ``(J, padded_vocab)`` of each chunk's last real position.
+
+    Offsets, slots and lengths are ``(J,)`` int32 tensors on the cache's
+    device, as in JAX, or sequences of ints (made into such tensors).  Every
+    index is device arithmetic, with no host read-back, so the engine
+    captures a round as a CUDA graph and replays it for any jobs: the
+    cache writes are indexed copies over a flattened ``(B*S)`` view of the
+    layer, the last real positions a gather.  A chunk must lie inside the
+    cache (``offset + C <= S``, asserted where the offsets are host values);
+    the engine's chunk plans keep it inside its history bucket too."""
     J, C = tokens.shape
     tp = as_tp(tp)
     cfg = tp.local_cfg(cfg)
     KV, HD = cfg.num_kv_heads, cfg.head_dim
-    G = cfg.num_heads // KV
     quant = kv_cache_is_quantized(cache)
+    S = cache["k"].shape[2 if quant else 3]
     dev = tokens.device
+    if not isinstance(offsets, torch.Tensor):
+        assert all(0 <= o and o + C <= S for o in offsets), f"chunks {offsets} + {C} past {S}"
+    offsets, slots, lengths = (torch.as_tensor(t, dtype=torch.int32, device=dev)
+                               for t in (offsets, slots, lengths))
     inv_freqs = rope_inv_freqs(cfg, dev)
     steps = torch.arange(C, dtype=torch.int32, device=dev)
-    positions = torch.stack([off + steps for off in offsets])  # (J, C)
-    n_live = max(offsets) + C
+    positions = offsets[:, None] + steps[None, :]  # (J, C)
+    # rows of the layer's flattened cache each chunk position writes
+    lane_pos = (slots.long()[:, None] * S + positions.long()).reshape(J * C)
+    if not quant:  # head-major (B, KV, S, HD): one row per kv head
+        heads = torch.arange(KV, device=dev)
+        lane_pos = (slots.long()[:, None, None] * KV + heads[None, :, None]) * S \
+            + positions.long()[:, None, :]  # (J, KV, C)
+        lane_pos = lane_pos.reshape(J * KV * C)
     x = tp.embed(params["embed"], tokens, params["ln_f"].dtype)  # (J, C, D)
     mm = matmul_w8a8 if w8a8 else matmul_maybe_quant
     # row-split inputs take their per-token int8 scale over the whole row
@@ -294,35 +264,26 @@ def llama_prefill_chunk_batch(
         q, k, v = _project_qkv(tp.enter(h), wl, cfg, mm)  # (J, C, H/KV, HD)
         q = apply_rope(q, positions, inv_freqs)
         k = apply_rope(k, positions, inv_freqs)
+        layer = {name: t[i] for name, t in cache.items()}
         if quant:
             kq, ksc = quantize_kv(k)  # (J, C, KV, HD), (J, C, KV)
             vq, vsc = quantize_kv(v)
-            sc = torch.cat([ksc, vsc], dim=-1)
-        attn = []
-        for j, (off, slot) in enumerate(zip(offsets, slots)):
-            w = slice(off, off + C)
-            if quant:
-                cache["k"][i, slot, w] = kq[j].reshape(C, KV * HD)
-                cache["v"][i, slot, w] = vq[j].reshape(C, KV * HD)
-                cache["scale"][i, slot, w] = sc[j]
-                k_s = cache["k"][i, slot, :hist_bucket].reshape(hist_bucket, KV, HD).transpose(0, 1)
-                v_s = cache["v"][i, slot, :hist_bucket].reshape(hist_bucket, KV, HD).transpose(0, 1)
-                sc_s = cache["scale"][i, slot, :hist_bucket]
-                ks_s, vs_s = sc_s[:, :KV].T, sc_s[:, KV:].T
-            else:
-                cache["k"][i, slot, :, w] = k[j].transpose(0, 1).to(cache["k"].dtype)
-                cache["v"][i, slot, :, w] = v[j].transpose(0, 1).to(cache["v"].dtype)
-                k_s = cache["k"][i, slot, :, :hist_bucket]
-                v_s = cache["v"][i, slot, :, :hist_bucket]
-                ks_s = vs_s = None
-            attn.append(_chunk_streaming_attn(
-                q[j].reshape(C, KV, G, HD), k_s, v_s, ks_s, vs_s, positions[j],
-                hist_bucket, n_live=n_live))
-        attn = torch.stack(attn).reshape(J, C, cfg.num_heads * HD).to(x.dtype)
+            rows = {"k": kq.reshape(J * C, KV * HD), "v": vq.reshape(J * C, KV * HD),
+                    "scale": torch.cat([ksc, vsc], dim=-1).reshape(J * C, 2 * KV)}
+        else:
+            rows = {"k": k.transpose(1, 2).reshape(J * KV * C, HD),
+                    "v": v.transpose(1, 2).reshape(J * KV * C, HD)}
+        for name, val in rows.items():
+            t = layer[name]
+            t.view(-1, t.shape[-1]).index_copy_(0, lane_pos, val.to(t.dtype))
+        attn = prefill_chunk_attention(q.contiguous(), layer, slots, offsets, hist_bucket)
+        attn = attn.to(x.dtype)
         x = x + tp.reduce(mm_row(attn, wl["wo"]))
         h = rmsnorm(x, wl["ln2"], cfg.rms_eps)
         x = x + tp.reduce(_mlp(tp.enter(h), wl, cfg, mm, mm_row))
-    x_last = torch.stack([x[j, n - 1] for j, n in enumerate(lengths)])  # (J, D)
+    # each chunk's last real position (-1, an empty chunk, is its last, as in JAX)
+    last = torch.remainder(lengths.long() - 1, C)
+    x_last = x.gather(1, last[:, None, None].expand(J, 1, x.shape[-1]))[:, 0]  # (J, D)
     return tp.gather_vocab(lm_head_logits(params, rmsnorm(x_last, params["ln_f"], cfg.rms_eps),
                                           tp))
 

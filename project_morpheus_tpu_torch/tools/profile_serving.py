@@ -4,21 +4,24 @@
 
 Builds the serving runtime of ``SERVING_ENV`` (Orpheus-3B, int8 weights,
 int8 KV cache, 8 slots x 8192, banded sampling, the slot kernel), runs ``warm`` (the
-engine's ``warmup`` for this workload: every frame program captured as a
-CUDA graph), serves one short warm-up request, then serves ``PROMPTS``
+engine's ``warmup`` for this workload: every frame program and prefill
+round captured as a CUDA graph), serves one short warm-up request, then serves ``PROMPTS``
 (one ~2,500-token prompt and three short ones), ``TOKENS_PER_REQUEST``
 tokens each:
 
 1. unprofiled: wall time, ms per decode step, and host time per engine
    phase (frame dispatch, i.e. a graph replay and its readback copies,
-   prefill rounds, routing);
+   prefill rounds, routing), and each prefill round's host and device
+   time (``round_timer``; a round is a graph replay too);
 2. under ``torch.profiler`` tracing the card only (``device_trace``): the
    device's busy share of the window (the union of its kernels' spans), and
    device time by kernel name, in
    total and per frame (a frame is ``steps_per_sync`` decode steps; the
    tracer adds some host time of its own);
 3. the same for the three short prompts alone, a window of mostly frame
-   programs: what one frame costs on the device.
+   programs: what one frame costs on the device;
+4. the same for the long prompt alone and one frame: mostly its three
+   prefill rounds.
 
 Then prints the card's name and power limit.  ``chip_smoke.py`` serves
 the same workload through ``serving_runtime``, ``warm`` and these
@@ -119,6 +122,41 @@ def device_trace():
     trace["busy_s"] = busy_seconds(spans)
 
 
+@contextlib.contextmanager
+def round_timer(engine):
+    """Time each prefill round ``engine`` runs inside the block: the yielded
+    dict is filled on exit with ``rounds``, ``host_s`` (the host's time in
+    ``_prefill_round``: staging the inputs, a graph replay or the eager
+    launches, the first tokens' copy) and ``device_s`` (CUDA events on the
+    stream before and after each round: its device time, copies included,
+    once the work ahead of it has run)."""
+    import torch
+
+    fn = engine._prefill_round
+    stats = {"rounds": 0, "host_s": 0.0, "device_s": 0.0}
+    marks = []
+
+    def timed(*a, **k):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        try:
+            return fn(*a, **k)
+        finally:
+            end.record()
+            stats["host_s"] += time.perf_counter() - t0
+            stats["rounds"] += 1
+            marks.append((start, end))
+
+    engine._prefill_round = timed
+    try:
+        yield stats
+    finally:
+        del engine._prefill_round  # the class's method again
+        torch.cuda.synchronize()
+        stats["device_s"] = sum(s.elapsed_time(e) for s, e in marks) / 1e3
+
+
 def _wrap(engine, name, totals):
     fn = getattr(engine, name)
 
@@ -149,7 +187,7 @@ async def _serve(prompts, max_tokens):
     return await asyncio.gather(*[pull(LocalTorchAdapter(p, sampling=sp)) for p in prompts])
 
 
-async def _profiled(eng, prompts, what: str) -> None:
+async def _profiled(eng, prompts, what: str, max_tokens: int = TOKENS_PER_REQUEST) -> None:
     """Serve ``prompts`` under ``device_trace``: busy share of the window,
     and the top device operations in total and per frame."""
     import torch
@@ -158,7 +196,7 @@ async def _profiled(eng, prompts, what: str) -> None:
     t_all = time.perf_counter()
     with device_trace() as dev:
         t0 = time.perf_counter()
-        await _serve(prompts, TOKENS_PER_REQUEST)
+        await _serve(prompts, max_tokens)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     frames = max(1, (eng.steps - steps0) // eng.steps_per_sync)
@@ -188,19 +226,25 @@ async def _main() -> None:
     steps0 = eng.steps
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    pcm = await _serve(PROMPTS, TOKENS_PER_REQUEST)
-    torch.cuda.synchronize()
+    with round_timer(eng) as rounds:
+        pcm = await _serve(PROMPTS, TOKENS_PER_REQUEST)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     steps = eng.steps - steps0
     print(f"unprofiled: {wall:.3f} s wall, {steps} decode steps, {sum(pcm)} PCM bytes, "
           f"{wall / max(steps, 1) * 1e3:.2f} ms per step over the window")
     for name, (secs, n) in totals.items():
         print(f"  host {name}: {secs:.3f} s in {n} calls ({secs / max(n, 1) * 1e3:.2f} ms/call)")
+    n = max(rounds["rounds"], 1)
+    print(f"  prefill rounds: {rounds['rounds']}, host {rounds['host_s'] / n * 1e3:.2f} ms a "
+          f"round, device {rounds['device_s'] / n * 1e3:.2f} ms a round")
 
     await _profiled(eng, PROMPTS, "the whole load")
     # the short prompts alone: their prefill is a few small chunks, so the
     # window is mostly frame programs (graph replays)
     await _profiled(eng, PROMPTS[1:], "short prompts only")
+    # the long prompt alone for one frame: mostly its three prefill rounds
+    await _profiled(eng, PROMPTS[:1], "the long prompt, one frame", max_tokens=7)
     await eng.close()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())

@@ -1,6 +1,6 @@
 """Device time of the decode-attention kernels, apart from their wrappers' host time.
 
-    python -m project_morpheus_tpu_torch.tools.time_kernels
+    python -m project_morpheus_tpu_torch.tools.time_kernels [prefill]
 
 At the Orpheus-3B serving shapes (28 layers, 8 slots x 8192, KV=8, HD=128,
 G=3) and two sets of live lengths (``SHAPES``), times each kernel three ways:
@@ -18,6 +18,12 @@ G=3) and two sets of live lengths (``SHAPES``), times each kernel three ways:
 
 and, for the layered kernel, ``scaled_dot_product_attention`` on the same
 inputs as a yardstick (graph-timed the same way; the port never calls it).
+``PREFILL_SHAPES`` and the ``prefill_*`` helpers give the chunk-prefill
+attention's inputs, its bytes and causal operations, and its SDPA
+yardstick, timed the same way (``chip_smoke.py`` phase 2); with the
+argument ``prefill`` this prints only the chunk-prefill kernel's records
+(``prefill_timings``; run it in a copy of the package with a kernel
+constant changed to compare designs in one call).
 ``main`` also splits each call's device time by CUDA kernel (split pass,
 merge) with the torch profiler.  Prints one JSON line.  ``chip_smoke.py``
 phase 2 times with these functions, the int8 GEMV with ``chained_ms`` (a
@@ -173,7 +179,120 @@ def sdpa_call(torch, q, k, v, lens):
                           enable_gqa=True)
 
 
+# the chunk-prefill attention at the serving shapes: (chunk, history
+# bucket), each job's chunk the bucket's last (offset hist - chunk), J jobs
+# on spread slots of the B-slot cache; deepest history first, so garbage
+# written past one shape's frontier lies past every later one's too
+PREFILL_SHAPES = ((1024, 8192), (512, 8192), (1024, 4096), (1024, 1024))
+PREFILL_SLOTS = {1: [5], 4: [1, 3, 4, 6]}
+
+
+def prefill_cache(torch, quant: bool, dev, g, layers: int = L, slots: int = B,
+                  seq: int = S, kv: int = KV, hd: int = HD) -> dict:
+    """A random cache of ``layers`` layers in either layout of
+    ``model/llama.py``: int8 position-major with scales, or bf16
+    head-major."""
+    if quant:
+        shape = (layers, slots, seq, kv * hd)
+        return {"k": torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8),
+                "v": torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8),
+                "scale": torch.rand(layers, slots, seq, 2 * kv, generator=g, device=dev) * 0.02
+                + 0.002}
+    shape = (layers, slots, kv, seq, hd)
+    return {n: torch.randn(shape, generator=g, device=dev).to(torch.bfloat16) for n in ("k", "v")}
+
+
+def prefill_garbage(cache: dict, slots, frontier: int) -> None:
+    """Large finite values past ``frontier`` in each of ``slots``: read only
+    if a kernel attends past a query's position."""
+    quant = "scale" in cache
+    for b in slots:
+        if quant:
+            cache["k"][:, b, frontier:], cache["v"][:, b, frontier:] = 127, -127
+            cache["scale"][:, b, frontier:] = 1e3
+        else:
+            cache["k"][:, b, :, frontier:], cache["v"][:, b, :, frontier:] = 1e4, -1e4
+
+
+def prefill_work(J: int, C: int, hist: int, quant: bool, h: int = H, kv: int = KV,
+                 hd: int = HD):
+    """(bytes, operations) one call needs with every job's chunk at
+    ``hist - C``: q in and out once, each job's attended K/V (and scales)
+    once; the causal products only (q.k and p.v, a multiply-add each)."""
+    off = hist - C
+    keys = sum(min(off + c + 1, hist) for c in range(C))
+    row = 2 * kv * hd * (1 if quant else 2) + (2 * kv * 4 if quant else 0)
+    nbytes = 2 * J * C * h * hd * 2 + J * min(off + C, hist) * row + 8 * J
+    return nbytes, 4.0 * J * keys * h * hd
+
+
+def sdpa_prefill_call(torch, q, cache: dict, slots, hist: int):
+    """The yardstick for a bf16 cache: ``scaled_dot_product_attention`` of
+    the chunk (J, C, H, HD) over each job's history gathered beforehand
+    (its kv heads repeated to the query heads), with the causal mask of a
+    chunk at ``hist - C``; ``fn(i)`` reads layer ``i``."""
+    J, C, Hq, hd = q.shape
+    idx = torch.tensor(slots, device=q.device)
+    rep = Hq // cache["k"].shape[2]
+    kh = cache["k"][:, idx, :, :hist].repeat_interleave(rep, dim=2)
+    vh = cache["v"][:, idx, :, :hist].repeat_interleave(rep, dim=2)
+    pos = (hist - C) + torch.arange(C, device=q.device)
+    mask = (torch.arange(hist, device=q.device)[None, :] <= pos[:, None])[None, None]
+    q4 = q.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda i: sdpa(q4, kh[i % kh.shape[0]], vh[i % vh.shape[0]], attn_mask=mask)
+
+
+def prefill_timings(torch, dev, check) -> dict:
+    """The chunk-prefill kernel at every ``PREFILL_SHAPES`` shape, J = 1 and
+    4 jobs on ``PREFILL_SLOTS``, int8 and bf16 caches, garbage past each
+    job's frontier: checked against its twin at layers 0 and ``L - 1`` by
+    ``check(got, want, what)`` (which raises on a difference and returns
+    the max abs error), then timed by :func:`timings`; bf16 shapes beside
+    SDPA, the first bf16 J = 4 shape beside the twin.  Returns {shape name:
+    record with J, C, hist, quant, err and the times}."""
+    from project_morpheus_tpu_torch.ops import prefill_attention as pa
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    out = {}
+    for quant in (True, False):
+        cache = prefill_cache(torch, quant, dev, g)
+
+        def layer(i):
+            return {n: t[i % L] for n, t in cache.items()}
+
+        for J, slots in PREFILL_SLOTS.items():
+            st = torch.tensor(slots, dtype=torch.int32, device=dev)
+            for C, hist in PREFILL_SHAPES:
+                prefill_garbage(cache, slots, hist)  # each chunk ends at hist
+                ot = torch.full((J,), hist - C, dtype=torch.int32, device=dev)
+                q = torch.randn(J, C, H, HD, generator=g, device=dev).to(torch.bfloat16)
+                name = f"{'int8' if quant else 'bf16'} J={J} C={C} hist={hist}"
+                err = 0.0
+                for i in (0, L - 1):
+                    got = pa.prefill_chunk_attention(q, layer(i), st, ot, hist)
+                    want = pa.prefill_chunk_attention_plain(q, layer(i), st, ot, hist).float()
+                    torch.cuda.synchronize()
+                    err = max(err, check(got, want, f"prefill attention {name}, layer {i}"))
+                rec = dict(timings(lambda i: pa.prefill_chunk_attention(q, layer(i), st, ot,
+                                                                        hist)),
+                           J=J, C=C, hist=hist, quant=quant, err=err, plain_ms=None,
+                           library_ms=None)
+                if not quant:
+                    rec["library_ms"] = graph_ms(sdpa_prefill_call(torch, q, cache, slots, hist))
+                    if J == 4 and (C, hist) == PREFILL_SHAPES[0]:
+                        rec["plain_ms"] = events_ms(
+                            lambda i: pa.prefill_chunk_attention_plain(q, layer(i), st, ot, hist),
+                            3)
+                out[name] = rec
+        del cache
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
+    import sys
+
     import torch
 
     from project_morpheus_tpu_torch.ops import build, decode_attention as da
@@ -182,6 +301,16 @@ def main() -> None:
         raise SystemExit("time_kernels: needs a CUDA card")
     build.build_all()
     dev = torch.device("cuda")
+    if sys.argv[1:] == ["prefill"]:
+        def check(got, want, what):
+            err = (got.float() - want).abs()
+            if bool((err > 1e-2 * want.abs() + 2e-3).any()):
+                raise AssertionError(f"{what}: max err {err.max().item():.3e}")
+            return err.max().item()
+
+        print(json.dumps({"card": torch.cuda.get_device_name(0),
+                          "prefill": prefill_timings(torch, dev, check)}), flush=True)
+        return
     g = torch.Generator(device=dev).manual_seed(0)
     q = torch.randn(B, H, HD, generator=g, device=dev).to(torch.bfloat16)
     out = {"card": torch.cuda.get_device_name(0), "slots": {}, "layered": {}, "sdpa": {}}

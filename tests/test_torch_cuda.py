@@ -1,4 +1,5 @@
-"""Checks that need the card: each CUDA kernel against its plain twin, the
+"""Checks that need the card: each CUDA kernel against its plain twin (the
+chunk-prefill attention too), the
 engine's frame programs replayed from CUDA graphs against the same
 programs run eagerly, an HF checkpoint directory loaded onto the card
 against the same params passed directly, train steps on the card against
@@ -19,6 +20,7 @@ from project_morpheus_tpu_torch.model import hf_weights as hw
 from project_morpheus_tpu_torch.model.llama import init_llama_params
 from project_morpheus_tpu_torch.ops import decode_attention as da
 from project_morpheus_tpu_torch.ops import int8_gemv as ig
+from project_morpheus_tpu_torch.ops import prefill_attention as pa
 from project_morpheus_tpu_torch.tools import graph_check as gc
 
 
@@ -62,6 +64,48 @@ def test_cuda_kernels_match_twins(cuda, HD, G):
         err = (got.float() - want).abs()
         assert torch.all(err <= 1e-2 * want.abs() + 2e-3)
         assert torch.all(got[0] == 0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("HD,G", [(128, 3), (64, 4)])
+@pytest.mark.parametrize("quant", [True, False])
+def test_prefill_chunk_attention_matches_twin(cuda, HD, G, quant):
+    """The chunk-prefill kernel against its twin (same bf16 rounding points)
+    with int8 and bf16 histories: one job, and three on non-adjacent slots
+    at their own offsets (one at 0, one mid-tile, one whose chunk ends at
+    the bucket), garbage past each frontier, a chunk whose rows do not fill
+    the last row tile."""
+    g = torch.Generator(device=cuda).manual_seed(HD + G)
+    B, S, KV, C, hist = 6, 1024, 8, 80, 512
+    H = KV * G
+    for slots, offsets in (([4], [300]), ([5, 1, 3], [0, 197, hist - C])):
+        J = len(slots)
+        if quant:
+            layer = {"k": torch.randint(-127, 128, (B, S, KV * HD), generator=g, device=cuda,
+                                        dtype=torch.int8),
+                     "v": torch.randint(-127, 128, (B, S, KV * HD), generator=g, device=cuda,
+                                        dtype=torch.int8),
+                     "scale": torch.rand(B, S, 2 * KV, generator=g, device=cuda) * 0.02 + 0.002}
+        else:
+            layer = {n: torch.randn(B, KV, S, HD, generator=g, device=cuda).to(torch.bfloat16)
+                     for n in ("k", "v")}
+        for b, off in zip(slots, offsets):
+            if quant:
+                layer["k"][b, off + C:], layer["v"][b, off + C:] = 127, -127
+                layer["scale"][b, off + C:] = 1e3
+            else:
+                layer["k"][b, :, off + C:], layer["v"][b, :, off + C:] = 1e4, -1e4
+        q = torch.randn(J, C, H, HD, generator=g, device=cuda).to(torch.bfloat16)
+        st = torch.tensor(slots, dtype=torch.int32, device=cuda)
+        ot = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+        pa.reset_launch_counts()
+        got = pa.prefill_chunk_attention(q, layer, st, ot, hist)
+        want = pa.prefill_chunk_attention_plain(q, layer, st, ot, hist).float()
+        torch.cuda.synchronize()
+        assert pa.LAUNCHES["prefill_chunk_attention"] == 1
+        assert got.dtype == torch.bfloat16 and got.shape == (J, C, H * HD)
+        err = (got.float() - want).abs()
+        assert torch.all(err <= 1e-2 * want.abs() + 2e-3), err.max()
 
 
 @pytest.mark.requires_cuda
