@@ -21,8 +21,10 @@ Phases, each raising on failure (exit code 1, no result lines):
    of it ends) beside its bound, its twin (the cast + matmul it replaces)
    and ``torch.matmul`` on a pre-cast bf16 weight; then the chunk-prefill
    attention kernel (``prefill_chunk_attention``) at the 3B head shape:
-   C = 1024 at hist 1024, 4096 and 8192 and C = 512 at hist 8192, J = 1
-   and 4, int8 and bf16 caches, garbage past each frontier, against its
+   C = 1024 ending at hist 1024, 4096 and 8192, C = 512 ending at hist
+   8192, and the main path's rounds (C = 1024 at 1024 in hist 2048, C = 512
+   at 2048 in hist 4096), J = 1 and 4, int8 and bf16 caches, garbage past
+   each frontier, against its
    twin, each shape timed from a CUDA graph of 28 calls beside its bound
    (causal operations against bytes) and, for bf16, SDPA with the same
    causal mask over the gathered history;
@@ -422,17 +424,19 @@ def phase_gemv(torch, dev):
 def phase_prefill_kernel(torch, dev):
     """The chunk-prefill attention kernel against its twin at the 3B shapes
     (H=24, KV=8, HD=128; 28 layers x 8 slots x 8192), through
-    ``time_kernels.prefill_timings``: C = 1024 at hist 1024, 4096 and 8192
-    and C = 512 at hist 8192, each job's chunk the bucket's last, J = 1 and
-    4 jobs on spread slots, int8 and bf16 caches, garbage past each
-    frontier, layers 0 and 27; each shape timed (device ms from a CUDA graph
-    of 28 calls, one a layer) beside its bound, the bf16 ones beside SDPA.
+    ``time_kernels.prefill_timings``: every ``PREFILL_SHAPES`` (chunk,
+    bucket, offset), the bucket's last chunks and the main path's own
+    rounds, J = 1 and 4 jobs on spread slots, int8 and bf16 caches, garbage
+    past each frontier, layers 0 and 27; each shape timed (device ms from a
+    CUDA graph of 28 calls, one a layer) beside its bound, the bf16 ones
+    beside SDPA.
     Returns the kernel record, headed by bf16, J = 4, C = 1024, hist 8192."""
     from project_morpheus_tpu_torch.tools import time_kernels as tk
 
     shapes = tk.prefill_timings(torch, dev, check_close)
     for name, rec in shapes.items():
-        b_ms, b_by = bound(*tk.prefill_work(rec["J"], rec["C"], rec["hist"], rec["quant"]))
+        b_ms, b_by = bound(*tk.prefill_work(rec["J"], rec["C"], rec["hist"], rec["quant"],
+                                            rec["off"]))
         rec.update(bound_ms=b_ms, bound_by=b_by, bound_frac=b_ms / rec["device_ms"])
         extra = "".join(f", {what} {rec[k]:.4f} ms" for k, what in
                         (("library_ms", "sdpa"), ("plain_ms", "twin")) if rec[k] is not None)

@@ -80,6 +80,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int8_bf16.cuh"  // cvt2
+
 namespace {
 
 constexpr int kCons = 8;                    // consumer warps
@@ -179,19 +181,6 @@ __device__ __forceinline__ uint32_t lds4(uint32_t addr) {
 // copied with the 128-byte swizzle (chunk index XOR row mod 8)
 __device__ __forceinline__ uint32_t swz(int row, int chunk) {
   return row * 128 + ((chunk ^ (row & 7)) << 4);
-}
-
-// Two int8 values, in bytes 0 and 2 of `w`, -> exact bf16x2 (byte 0 in
-// the low half).  With s the sign bit and l the low 7 bits of x,
-// x = (128 + l) - 128 (1 + s): both terms are bf16 bit patterns (0x4300 | l
-// and 0x4300 | s << 7), and their difference is exact.  Three integer
-// operations and one bf16x2 subtract, no float conversion.
-__device__ __forceinline__ uint32_t cvt2(uint32_t w) {
-  const uint32_t mag = (w & 0x007F007Fu) | 0x43004300u;
-  const uint32_t off = (w & 0x00800080u) | 0x43004300u;
-  const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&mag),
-                                   *reinterpret_cast<const __nv_bfloat162*>(&off));
-  return *reinterpret_cast<const uint32_t*>(&d);
 }
 
 // byte `sa` of `a` (low half) and byte `sb` of `b` (high half) -> bf16x2

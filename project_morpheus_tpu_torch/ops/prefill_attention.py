@@ -26,6 +26,11 @@ replays with any offsets and slots.  It rounds as the JAX function does:
 k scales on the scores, v scales on the probabilities before they round to
 the dot dtype for P.V, fp32 sums.
 
+The kernel (Hopper: wgmma on TMA-fed tiles, int8 tiles converted by the
+copying warpgroup, heaviest row tiles first; its source says how) needs
+an even number of kv heads with an int8 cache: a scale row is one TMA box
+row, whose stride must be a multiple of 16 bytes.
+
 The wrapper sends CPU tensors to the plain twin, that function applied
 job by job, and launches the kernel for CUDA tensors, or raises: nothing
 falls back.  ``LAUNCHES`` counts kernel launches.
@@ -150,8 +155,8 @@ def _require(cond: bool, msg: str) -> None:
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# pointers: q k v scale slots offsets out; ints J C H KV HD S hist quant; scale; stream
-_ARGTYPES = [_P] * 7 + [_I] * 8 + [_F, _P]
+# pointers: q k v scale slots offsets out; ints B J C H KV HD S hist quant; scale; stream
+_ARGTYPES = [_P] * 7 + [_I] * 9 + [_F, _P]
 
 
 def prefill_chunk_attention(
@@ -178,6 +183,7 @@ def prefill_chunk_attention(
     _require(k.shape == v.shape and k.is_contiguous() and v.is_contiguous(),
              "k and v must be contiguous and of one shape")
     if quant:
+        _require(KV % 2 == 0, "an int8 cache needs an even number of kv heads (TMA scale rows)")
         sc = layer["scale"]
         _require(sc.dtype == torch.float32 and sc.shape == (B, S, 2 * KV) and sc.is_contiguous(),
                  "scale must be contiguous fp32 (B, S, 2KV)")
@@ -198,7 +204,7 @@ def prefill_chunk_attention(
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     layer["scale"].data_ptr() if quant else 0,
                     slots.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-                    J, C, H, KV, HD, S, int(hist_bucket), int(quant), HD**-0.5, stream)
+                    B, J, C, H, KV, HD, S, int(hist_bucket), int(quant), HD**-0.5, stream)
     if status != 0:
         raise RuntimeError(
             f"prefill_chunk_attention launch failed: {lib.mp_error_string(status).decode()}")

@@ -2,6 +2,7 @@
 
     python -m project_morpheus_tpu_torch.tools.kernel_ablation [VARIANT ...]
     python -m project_morpheus_tpu_torch.tools.kernel_ablation gemv [VARIANT ...]
+    python -m project_morpheus_tpu_torch.tools.kernel_ablation prefill [VARIANT ...]
 
 Decode attention:
 
@@ -40,6 +41,26 @@ running it there:
   own partial sum (the ticket design: stores it; the cluster design: stops
   before the cluster exchange);
 - ``empty``: every block returns at once, on the same grid and launch.
+
+The chunk-prefill attention (``prefill``): ``prefill_chunk_attention.cu``
+with one part skipped, built the same way and timed with
+``time_kernels.graph_ms`` (28 layers cycled) at ``PREFILL_ABLATION_SHAPES``:
+the head shape (J = 4, C = 1024 at 7168, hist 8192) and the main path's
+first round (J = 1, C = 1024 at 0, hist 1024), int8 and bf16 caches, twice
+in turns:
+
+- ``kernel``: the source as it is;
+- ``no_convert``: the int8 tiles' conversion to bf16 skipped (the scale
+  columns still copied, the rings still handed over);
+- ``no_softmax``: every tile's mask, maxima and exponentials skipped after
+  a block's first tile (the scores go to P.V as they are);
+- ``no_pv``: the P.V products skipped;
+- ``no_tma``: no tile copied: the producer arrives on each stage without a
+  copy, so the consumers read whatever the ring holds (a fixed tile);
+- ``loads_only``: the consumers only wait for each tile and hand it back
+  (the copies, and for int8 the conversion, with nothing to feed);
+- ``keys128``: 128-key tiles for a bf16 cache (3 stages) instead of 64
+  (an int8 cache's tiles are 64 keys either way: its two rings must fit).
 
 Prints one line per variant and round; needs a CUDA card.
 """
@@ -238,6 +259,105 @@ def gemv_main(argv) -> None:
                          capture_output=True, text=True).stdout.strip(), flush=True)
 
 
+# ------------------------------------------------------------ chunk-prefill attention
+
+PREFILL_SRC = "prefill_chunk_attention.cu"
+PREFILL_ABLATION_SHAPES = ((4, 1024, 8192, 7168), (1, 1024, 1024, 0))  # (J, C, hist, offset)
+PREFILL_EDITS = {
+    "kernel": [],
+    "no_convert": [
+        ("        for (int k = 0; k < 2 * kBK * kPieces / kConvThreads; ++k) {\n",
+         "        if (a.sm_scale > 1e30f)\n"
+         "        for (int k = 0; k < 2 * kBK * kPieces / kConvThreads; ++k) {\n"),
+    ],
+    "no_softmax": [
+        ("      softmax(t, al_lo, al_hi);\n",
+         "      if (a.sm_scale > 1e30f) softmax(t, al_lo, al_hi); else al_lo = al_hi = 1.f;\n"),
+    ],
+    "no_pv": [
+        ("      wgmma_pv<HD>(o, pf[kk], d, 1);\n",
+         "      if (a.sm_scale > 1e30f) wgmma_pv<HD>(o, pf[kk], d, 1);\n"),
+    ],
+    "no_tma": [
+        ("                                          int c2, uint32_t bar) {\n",
+         "                                          int c2, uint32_t bar) {\n  return;\n"),
+        ("        mbar_expect_tx(bar, bytes);\n", "        mbar_expect_tx(bar, 0u);\n"),
+    ],
+    "loads_only": [
+        ("  for (int t = 0; t < min(nt_w, kFirstBlock / kBK); ++t) {\n",
+         "  for (int t = 0; t < (a.sm_scale > 1e30f ? min(nt_w, kFirstBlock / kBK) : 0); ++t) {\n"),
+        ("  if (nt_w > 0) {\n    float al_lo, al_hi;\n",
+         "  if (nt_w > 0 && a.sm_scale > 1e30f) {\n    float al_lo, al_hi;\n"),
+        ("  for (int t = nt_w; t < n_tiles; ++t) {  // tiles past this warpgroup's rows\n",
+         "  for (int t = a.sm_scale > 1e30f ? nt_w : 0; t < n_tiles; ++t) {\n"),
+    ],
+    "keys128": [
+        ("constexpr int kKeysBf = 64;", "constexpr int kKeysBf = 128;"),
+        ("constexpr int kStages = 6;", "constexpr int kStages = 3;"),
+    ],
+}
+
+
+def prefill_variant(src: str, name: str) -> str:
+    """``prefill_chunk_attention.cu`` with variant ``name``'s edits (each
+    anchor found exactly once, or for ``no_tma``'s expect_tx once per
+    layout)."""
+    for old, new in PREFILL_EDITS[name]:
+        n = src.count(old)
+        if n == 0 or (n > 1 and "expect_tx" not in old):
+            raise ValueError(f"ablation anchor found {n} times in {PREFILL_SRC}: {old[:60]!r}")
+        src = src.replace(old, new)
+    return src
+
+
+def prefill_main(argv) -> None:
+    import subprocess
+
+    import torch
+
+    from project_morpheus_tpu_torch.ops import build, prefill_attention as pa
+    from project_morpheus_tpu_torch.tools import time_kernels as tk
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ablation: needs a CUDA card")
+    names = argv or list(PREFILL_EDITS)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    caches = {quant: tk.prefill_cache(torch, quant, dev, g) for quant in (True, False)}
+    calls = []
+    for quant, cache in caches.items():
+        for J, C, hist, off in PREFILL_ABLATION_SHAPES:
+            st = torch.tensor(tk.PREFILL_SLOTS[J], dtype=torch.int32, device=dev)
+            ot = torch.full((J,), off, dtype=torch.int32, device=dev)
+            q = torch.randn(J, C, tk.H, tk.HD, generator=g, device=dev).to(torch.bfloat16)
+            label = f"{'int8' if quant else 'bf16'} J={J} C={C} off={off} hist={hist}"
+            calls.append((label, cache, q, st, ot, hist))
+    own_csrc, own_build, own_sources = build.CSRC, build.BUILD_DIR, build.SOURCES
+    try:
+        for rnd in range(2):
+            for name in names:
+                var_src = own_build / "ablation" / f"prefill_{name}" / "csrc"
+                if var_src.exists():
+                    shutil.rmtree(var_src)
+                shutil.copytree(own_csrc, var_src)
+                cu = var_src / PREFILL_SRC
+                cu.write_text(prefill_variant(cu.read_text(), name))
+                build.CSRC, build.BUILD_DIR, build.SOURCES = var_src, var_src.parent, (PREFILL_SRC,)
+                build._libs.clear()
+                build.build_all()
+                row = []
+                for label, cache, q, st, ot, hist in calls:
+                    ms = tk.graph_ms(lambda i: pa.prefill_chunk_attention(
+                        q, {n: t[i % tk.L] for n, t in cache.items()}, st, ot, hist))
+                    row.append(f"{label} {ms:.4f} ms")
+                print(f"round {rnd} prefill {name}: " + "; ".join(row), flush=True)
+    finally:
+        build.CSRC, build.BUILD_DIR, build.SOURCES = own_csrc, own_build, own_sources
+        build._libs.clear()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+
+
 # ------------------------------------------------------------ decode attention
 
 
@@ -288,5 +408,7 @@ def main(names) -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["gemv"]:
         gemv_main(sys.argv[2:])
+    elif sys.argv[1:2] == ["prefill"]:
+        prefill_main(sys.argv[2:])
     else:
         main(sys.argv[1:] or list(VARIANTS))

@@ -22,8 +22,10 @@ inputs as a yardstick (graph-timed the same way; the port never calls it).
 attention's inputs, its bytes and causal operations, and its SDPA
 yardstick, timed the same way (``chip_smoke.py`` phase 2); with the
 argument ``prefill`` this prints only the chunk-prefill kernel's records
-(``prefill_timings``; run it in a copy of the package with a kernel
-constant changed to compare designs in one call).
+(``prefill_timings``) and the checks that failed, and exits non-zero if
+any did, after timing every shape (run it in a copy of the package with a
+kernel constant changed, or in a ``git archive`` of a parent commit with
+this file copied in, to compare designs in one call).
 ``main`` also splits each call's device time by CUDA kernel (split pass,
 merge) with the torch profiler.  Prints one JSON line.  ``chip_smoke.py``
 phase 2 times with these functions, the int8 GEMV with ``chained_ms`` (a
@@ -180,10 +182,15 @@ def sdpa_call(torch, q, k, v, lens):
 
 
 # the chunk-prefill attention at the serving shapes: (chunk, history
-# bucket), each job's chunk the bucket's last (offset hist - chunk), J jobs
-# on spread slots of the B-slot cache; deepest history first, so garbage
-# written past one shape's frontier lies past every later one's too
-PREFILL_SHAPES = ((1024, 8192), (512, 8192), (1024, 4096), (1024, 1024))
+# bucket, offset), every job's chunk at [offset, offset + chunk), J jobs on
+# spread slots of the B-slot cache.  The first four end at their bucket;
+# the main path's rounds (``engine._plan_chunks`` on ``chip_smoke.py``'s
+# 2,491-token prompt: 1024 at 0, 1024 at 1024, 512 at 2048; its burst runs
+# the first at J = 4) do not.  Frontiers (offset + chunk) fall along the
+# tuple, so garbage written past one shape's frontier lies past every later
+# one's too.
+PREFILL_SHAPES = ((1024, 8192, 7168), (512, 8192, 7680), (1024, 4096, 3072),
+                  (512, 4096, 2048), (1024, 2048, 1024), (1024, 1024, 0))
 PREFILL_SLOTS = {1: [5], 4: [1, 3, 4, 6]}
 
 
@@ -214,29 +221,28 @@ def prefill_garbage(cache: dict, slots, frontier: int) -> None:
             cache["k"][:, b, :, frontier:], cache["v"][:, b, :, frontier:] = 1e4, -1e4
 
 
-def prefill_work(J: int, C: int, hist: int, quant: bool, h: int = H, kv: int = KV,
+def prefill_work(J: int, C: int, hist: int, quant: bool, off: int, h: int = H, kv: int = KV,
                  hd: int = HD):
-    """(bytes, operations) one call needs with every job's chunk at
-    ``hist - C``: q in and out once, each job's attended K/V (and scales)
-    once; the causal products only (q.k and p.v, a multiply-add each)."""
-    off = hist - C
+    """(bytes, operations) one call needs with every job's chunk at ``off``:
+    q in and out once, each job's attended K/V (and scales) once; the
+    causal products only (q.k and p.v, a multiply-add each)."""
     keys = sum(min(off + c + 1, hist) for c in range(C))
     row = 2 * kv * hd * (1 if quant else 2) + (2 * kv * 4 if quant else 0)
     nbytes = 2 * J * C * h * hd * 2 + J * min(off + C, hist) * row + 8 * J
     return nbytes, 4.0 * J * keys * h * hd
 
 
-def sdpa_prefill_call(torch, q, cache: dict, slots, hist: int):
+def sdpa_prefill_call(torch, q, cache: dict, slots, hist: int, off: int):
     """The yardstick for a bf16 cache: ``scaled_dot_product_attention`` of
     the chunk (J, C, H, HD) over each job's history gathered beforehand
     (its kv heads repeated to the query heads), with the causal mask of a
-    chunk at ``hist - C``; ``fn(i)`` reads layer ``i``."""
+    chunk at ``off``; ``fn(i)`` reads layer ``i``."""
     J, C, Hq, hd = q.shape
     idx = torch.tensor(slots, device=q.device)
     rep = Hq // cache["k"].shape[2]
     kh = cache["k"][:, idx, :, :hist].repeat_interleave(rep, dim=2)
     vh = cache["v"][:, idx, :, :hist].repeat_interleave(rep, dim=2)
-    pos = (hist - C) + torch.arange(C, device=q.device)
+    pos = off + torch.arange(C, device=q.device)
     mask = (torch.arange(hist, device=q.device)[None, :] <= pos[:, None])[None, None]
     q4 = q.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -247,10 +253,10 @@ def prefill_timings(torch, dev, check) -> dict:
     """The chunk-prefill kernel at every ``PREFILL_SHAPES`` shape, J = 1 and
     4 jobs on ``PREFILL_SLOTS``, int8 and bf16 caches, garbage past each
     job's frontier: checked against its twin at layers 0 and ``L - 1`` by
-    ``check(got, want, what)`` (which raises on a difference and returns
-    the max abs error), then timed by :func:`timings`; bf16 shapes beside
+    ``check(got, want, what)`` (which raises on a difference, or records
+    it, and returns the max abs error), then timed by :func:`timings`; bf16 shapes beside
     SDPA, the first bf16 J = 4 shape beside the twin.  Returns {shape name:
-    record with J, C, hist, quant, err and the times}."""
+    record with J, C, hist, off, quant, err and the times}."""
     from project_morpheus_tpu_torch.ops import prefill_attention as pa
 
     g = torch.Generator(device=dev).manual_seed(7)
@@ -263,11 +269,11 @@ def prefill_timings(torch, dev, check) -> dict:
 
         for J, slots in PREFILL_SLOTS.items():
             st = torch.tensor(slots, dtype=torch.int32, device=dev)
-            for C, hist in PREFILL_SHAPES:
-                prefill_garbage(cache, slots, hist)  # each chunk ends at hist
-                ot = torch.full((J,), hist - C, dtype=torch.int32, device=dev)
+            for C, hist, off in PREFILL_SHAPES:
+                prefill_garbage(cache, slots, off + C)
+                ot = torch.full((J,), off, dtype=torch.int32, device=dev)
                 q = torch.randn(J, C, H, HD, generator=g, device=dev).to(torch.bfloat16)
-                name = f"{'int8' if quant else 'bf16'} J={J} C={C} hist={hist}"
+                name = f"{'int8' if quant else 'bf16'} J={J} C={C} off={off} hist={hist}"
                 err = 0.0
                 for i in (0, L - 1):
                     got = pa.prefill_chunk_attention(q, layer(i), st, ot, hist)
@@ -276,11 +282,12 @@ def prefill_timings(torch, dev, check) -> dict:
                     err = max(err, check(got, want, f"prefill attention {name}, layer {i}"))
                 rec = dict(timings(lambda i: pa.prefill_chunk_attention(q, layer(i), st, ot,
                                                                         hist)),
-                           J=J, C=C, hist=hist, quant=quant, err=err, plain_ms=None,
+                           J=J, C=C, hist=hist, off=off, quant=quant, err=err, plain_ms=None,
                            library_ms=None)
                 if not quant:
-                    rec["library_ms"] = graph_ms(sdpa_prefill_call(torch, q, cache, slots, hist))
-                    if J == 4 and (C, hist) == PREFILL_SHAPES[0]:
+                    rec["library_ms"] = graph_ms(sdpa_prefill_call(torch, q, cache, slots, hist,
+                                                                   off))
+                    if J == 4 and (C, hist, off) == PREFILL_SHAPES[0]:
                         rec["plain_ms"] = events_ms(
                             lambda i: pa.prefill_chunk_attention_plain(q, layer(i), st, ot, hist),
                             3)
@@ -302,14 +309,20 @@ def main() -> None:
     build.build_all()
     dev = torch.device("cuda")
     if sys.argv[1:] == ["prefill"]:
-        def check(got, want, what):
+        fails = []
+
+        def check(got, want, what):  # chip_smoke.check_close's bound, recorded
             err = (got.float() - want).abs()
-            if bool((err > 1e-2 * want.abs() + 2e-3).any()):
-                raise AssertionError(f"{what}: max err {err.max().item():.3e}")
+            bad = int((err > 1e-2 * want.abs() + 2e-3).sum())
+            if bad:
+                fails.append(dict(what=what, values=bad, max_err=err.max().item()))
             return err.max().item()
 
-        print(json.dumps({"card": torch.cuda.get_device_name(0),
-                          "prefill": prefill_timings(torch, dev, check)}), flush=True)
+        shapes = prefill_timings(torch, dev, check)
+        print(json.dumps({"card": torch.cuda.get_device_name(0), "fails": fails,
+                          "prefill": shapes}), flush=True)
+        if fails:
+            raise SystemExit(f"time_kernels: {len(fails)} checks failed: {fails}")
         return
     g = torch.Generator(device=dev).manual_seed(0)
     q = torch.randn(B, H, HD, generator=g, device=dev).to(torch.bfloat16)

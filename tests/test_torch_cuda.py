@@ -66,35 +66,64 @@ def test_cuda_kernels_match_twins(cuda, HD, G):
         assert torch.all(got[0] == 0)
 
 
+def _prefill_layer(g, cuda, quant, B, S, KV, HD):
+    """One layer of a random cache in either layout of ``model/llama.py``."""
+    if quant:
+        return {"k": torch.randint(-127, 128, (B, S, KV * HD), generator=g, device=cuda,
+                                   dtype=torch.int8),
+                "v": torch.randint(-127, 128, (B, S, KV * HD), generator=g, device=cuda,
+                                   dtype=torch.int8),
+                "scale": torch.rand(B, S, 2 * KV, generator=g, device=cuda) * 0.02 + 0.002}
+    return {n: torch.randn(B, KV, S, HD, generator=g, device=cuda).to(torch.bfloat16)
+            for n in ("k", "v")}
+
+
+def _prefill_garbage(layer, slot, frontier):
+    """Large finite values past a job's frontier: read only by a kernel that
+    attends past a query's position."""
+    if "scale" in layer:
+        layer["k"][slot, frontier:], layer["v"][slot, frontier:] = 127, -127
+        layer["scale"][slot, frontier:] = 1e3
+    else:
+        layer["k"][slot, :, frontier:], layer["v"][slot, :, frontier:] = 1e4, -1e4
+
+
+def _assert_prefill_close(got, want):
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    err = (got.float() - want).abs()
+    assert torch.all(err <= 1e-2 * want.abs() + 2e-3), err.max()
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("HD,G", [(128, 3), (64, 4)])
 @pytest.mark.parametrize("quant", [True, False])
 def test_prefill_chunk_attention_matches_twin(cuda, HD, G, quant):
     """The chunk-prefill kernel against its twin (same bf16 rounding points)
-    with int8 and bf16 histories: one job, and three on non-adjacent slots
-    at their own offsets (one at 0, one mid-tile, one whose chunk ends at
-    the bucket), garbage past each frontier, a chunk whose rows do not fill
-    the last row tile."""
+    with int8 and bf16 histories, garbage past each frontier, at the
+    design's edges: one job; three on non-adjacent slots at their own
+    offsets (one at 0, one mid-tile, one whose chunk ends at the bucket);
+    chunks whose rows end mid-warpgroup (C * G not a multiple of 64; at
+    G = 4 a block's second consumer warpgroup gets no rows); four jobs of
+    very different work (one at 0, one ending at the bucket) on
+    non-adjacent slots; a chunk whose first key tile straddles its
+    frontier; and a CUDA graph captured at one set of offsets and slots,
+    replayed at another, equal to an eager call at the second."""
     g = torch.Generator(device=cuda).manual_seed(HD + G)
-    B, S, KV, C, hist = 6, 1024, 8, 80, 512
+    B, S, KV, hist = 6, 1024, 8, 512
     H = KV * G
-    for slots, offsets in (([4], [300]), ([5, 1, 3], [0, 197, hist - C])):
+    cases = (  # (slots, offsets, chunk)
+        ([4], [300], 80),
+        ([5, 1, 3], [0, 197, hist - 80], 80),
+        ([2], [64], 37),
+        ([0, 4], [5, hist - 21], 21),
+        ([0, 2, 5, 3], [0, hist - 96, 131, 260], 96),
+        ([1], [100], 40),
+    )
+    for slots, offsets, C in cases:
         J = len(slots)
-        if quant:
-            layer = {"k": torch.randint(-127, 128, (B, S, KV * HD), generator=g, device=cuda,
-                                        dtype=torch.int8),
-                     "v": torch.randint(-127, 128, (B, S, KV * HD), generator=g, device=cuda,
-                                        dtype=torch.int8),
-                     "scale": torch.rand(B, S, 2 * KV, generator=g, device=cuda) * 0.02 + 0.002}
-        else:
-            layer = {n: torch.randn(B, KV, S, HD, generator=g, device=cuda).to(torch.bfloat16)
-                     for n in ("k", "v")}
+        layer = _prefill_layer(g, cuda, quant, B, S, KV, HD)
         for b, off in zip(slots, offsets):
-            if quant:
-                layer["k"][b, off + C:], layer["v"][b, off + C:] = 127, -127
-                layer["scale"][b, off + C:] = 1e3
-            else:
-                layer["k"][b, :, off + C:], layer["v"][b, :, off + C:] = 1e4, -1e4
+            _prefill_garbage(layer, b, off + C)
         q = torch.randn(J, C, H, HD, generator=g, device=cuda).to(torch.bfloat16)
         st = torch.tensor(slots, dtype=torch.int32, device=cuda)
         ot = torch.tensor(offsets, dtype=torch.int32, device=cuda)
@@ -103,9 +132,32 @@ def test_prefill_chunk_attention_matches_twin(cuda, HD, G, quant):
         want = pa.prefill_chunk_attention_plain(q, layer, st, ot, hist).float()
         torch.cuda.synchronize()
         assert pa.LAUNCHES["prefill_chunk_attention"] == 1
-        assert got.dtype == torch.bfloat16 and got.shape == (J, C, H * HD)
-        err = (got.float() - want).abs()
-        assert torch.all(err <= 1e-2 * want.abs() + 2e-3), err.max()
+        _assert_prefill_close(got, want.view(J, C, H * HD))
+
+    # captured at (slots, offsets) A, replayed at B: equal to eager at B
+    C, slots_a, offs_a, slots_b, offs_b = 64, [1, 4], [0, 128], [5, 2], [hist - 64, 77]
+    layer = _prefill_layer(g, cuda, quant, B, S, KV, HD)
+    for b, off in zip(slots_b, offs_b):
+        _prefill_garbage(layer, b, off + C)
+    q = torch.randn(2, C, H, HD, generator=g, device=cuda).to(torch.bfloat16)
+    st = torch.tensor(slots_a, dtype=torch.int32, device=cuda)
+    ot = torch.tensor(offs_a, dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the first (eager) call sizes the kernel's shared memory
+        pa.prefill_chunk_attention(q, layer, st, ot, hist)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = pa.prefill_chunk_attention(q, layer, st, ot, hist)
+    st.copy_(torch.tensor(slots_b, dtype=torch.int32))
+    ot.copy_(torch.tensor(offs_b, dtype=torch.int32))
+    graph.replay()
+    eager = pa.prefill_chunk_attention(q, layer, st, ot, hist)
+    want = pa.prefill_chunk_attention_plain(q, layer, st, ot, hist).float()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, eager)
+    _assert_prefill_close(eager, want.view(2, C, H * HD))
 
 
 @pytest.mark.requires_cuda
