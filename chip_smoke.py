@@ -27,7 +27,14 @@ Phases, each raising on failure (exit code 1, no result lines):
    each frontier, against its
    twin, each shape timed from a CUDA graph of 28 calls beside its bound
    (causal operations against bytes) and, for bf16, SDPA with the same
-   causal mask over the gathered history;
+   causal mask over the gathered history; then the chunk prefill's w8a8
+   quantize and GEMM (``ops/w8a8_gemm.py``) at the four 3B weights and
+   four tp = 2 halves, M = 32 to 4096 rows and the tails 1, 33, 1000,
+   equal to their plain versions bit for bit, eager and replayed from a
+   CUDA graph, timed beside their bounds (the GEMM's operations at the
+   int8 rate), the plain versions and, for the GEMM, ``torch._int_mm`` on
+   the (K, N) weight and on the K-major copy and ``torch.matmul`` on a
+   pre-dequantized bf16 weight;
 3. hold the port's decode path on the card (bf16, int8 weights, CUDA
    kernels, int8 and bf16 caches) against the same path on the CPU (fp32,
    plain twins) on a small model; then serve seeded requests on that model
@@ -43,7 +50,8 @@ Phases, each raising on failure (exit code 1, no result lines):
    Each load prints ms per decode step, TTFA and real-time factor, and
    runs once more under the torch profiler for the device's idle share.
    Prefill rounds replay the CUDA graphs ``warmup`` captured (printed: how
-   many, the graph pool's bytes; none captured after warmup; the replays,
+   many, the graph pool's bytes, and the bytes of the weights' K-major
+   copies for the w8a8 GEMM; none captured after warmup; the replays,
    host and device ms a round); the first load runs again, seeded and
    greedy, with prefill rounds eager: the same tokens;
 5. serve the 3B widths at 4 layers with a bf16 cache and
@@ -117,7 +125,8 @@ load and just before phase 9's mesh engine (b) and each rank's TP engine
 CUDA graphs are counted through each graph's tally.  The last lines are the
 GEMV's device ms a frame in the k=1 serving load, the card's name and power
 limit, one JSON line describing every kernel (the chunk-prefill attention
-the fourth), and
+the fourth, the w8a8 GEMM and quantize the fifth and sixth, each timed as
+one 1,024-row prefill round's 112 calls), and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout of the repository, it exits non-zero before printing any result.
 """
@@ -140,6 +149,8 @@ from pathlib import Path
 
 H100_BYTES_PER_S = 3.35e12   # H100 SXM data sheet: HBM3 bandwidth
 H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak
+H100_INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak (Hopper white paper)
+H100_FP32_OPS_PER_S = 67e12   # fp32 outside the tensor cores
 
 
 _T0 = time.perf_counter()
@@ -155,8 +166,10 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
-def bound(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_BF16_OPS_PER_S
+def bound(nbytes: float, ops: float, ops_per_s: float = H100_BF16_OPS_PER_S):
+    """(least ms, what bounds it): bytes over HBM bandwidth or operations
+    over ``ops_per_s``, the peak rate of their type (bf16 by default)."""
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -456,6 +469,60 @@ def phase_prefill_kernel(torch, dev):
                 library_ms=head["library_ms"], shapes=shapes)
 
 
+def phase_w8a8(torch, dev):
+    """The chunk prefill's w8a8 quantize and GEMM against their plain
+    versions, bit for bit, eager and replayed from a CUDA graph, at every
+    ``time_kernels.W8A8_PAIRS`` weight (Orpheus-3B's and the tp = 2
+    halves) and ``W8A8_ROWS`` + ``W8A8_TAILS`` row count, timed at the
+    rows (``time_kernels.w8a8_timings``).  Returns the GEMM's and the
+    quantize's records, each headed by one 1,024-row round's 28 layers x
+    four 3B projections (summed device ms); every shape is in the log."""
+    from project_morpheus_tpu_torch.tools import time_kernels as tk
+
+    t0 = time.perf_counter()
+    shapes = tk.w8a8_timings(torch, dev)
+    for name, r in shapes.items():
+        b_ms, b_by = bound(*tk.w8a8_work(r["M"], r["K"], r["N"]), H100_INT8_OPS_PER_S)
+        q_ms, q_by = bound(*tk.quantize_work(r["M"], r["K"]), H100_FP32_OPS_PER_S)
+        r.update(bound_ms=b_ms, bound_by=b_by, bound_frac=b_ms / r["device_ms"],
+                 quantize_bound_ms=q_ms, quantize_bound_by=q_by)
+        log(f"  w8a8 [{name}, tile {r['tile_n']}]: gemm {r['device_ms']:.4f} ms/call, host "
+            f"{r['host_us']:.1f} us, bound {b_ms:.4f} ms by {b_by} "
+            f"({100 * r['bound_frac']:.1f}%), plain {r['plain_ms']:.3f} ms, _int_mm (K, N) "
+            f"{r['library_ms']:.4f}, _int_mm K-major {r['library_kmajor_ms']:.4f}, bf16 matmul "
+            f"{r['library_bf16_ms']:.4f}; quantize {r['quantize_ms'] * 1e3:.2f} us/call (bound "
+            f"{q_ms * 1e3:.2f} us by {q_by}), host {r['quantize_host_us']:.1f} us, plain "
+            f"{r['quantize_plain_ms'] * 1e3:.1f} us")
+    head = [shapes[f"{n} M=1024"] for n in ("wqkv", "wo", "wgu", "wd")]
+    round_ = {k: tk.L * sum(r[k] for r in head)
+              for k in ("device_ms", "plain_ms", "library_ms", "library_kmajor_ms",
+                        "library_bf16_ms", "bound_ms", "quantize_ms", "quantize_plain_ms",
+                        "quantize_bound_ms")}
+    log(f"kernels w8a8: equal to the plain versions bit for bit at {len(tk.W8A8_PAIRS)} weights "
+        f"x {len(tk.W8A8_ROWS) + len(tk.W8A8_TAILS)} row counts, eager and replayed; a "
+        f"1,024-row round's 28 x 4 GEMMs {round_['device_ms']:.3f} ms (bound "
+        f"{round_['bound_ms']:.3f}, {100 * round_['bound_ms'] / round_['device_ms']:.1f}%; "
+        f"_int_mm (K, N) {round_['library_ms']:.3f}, K-major {round_['library_kmajor_ms']:.3f}, "
+        f"bf16 matmul {round_['library_bf16_ms']:.3f}), quantizes "
+        f"{round_['quantize_ms']:.3f} ms (bound {round_['quantize_bound_ms']:.3f}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    src = "project_morpheus_tpu_torch/ops/csrc/w8a8_gemm.cu"
+    replaces = "project_morpheus_tpu/model/quant.py:{} (matmul_w8a8: XLA's {}; not a Pallas kernel)"
+    gemm = dict(name="w8a8_gemm", route="cuda", source=src,
+                replaces=replaces.format("89-95", "int8 dot_general with int32 accumulation "
+                                         "and the scaling"),
+                launches=0, max_abs_err=0.0, ms=round_["device_ms"], plain_ms=round_["plain_ms"],
+                bound_ms=round_["bound_ms"], bound_by="operations",
+                library_ms=round_["library_ms"],
+                library_kmajor_ms=round_["library_kmajor_ms"],
+                library_bf16_ms=round_["library_bf16_ms"])
+    quant = dict(name="w8a8_quantize", route="cuda", source=src,
+                 replaces=replaces.format("84-88", "per-token int8 quantization"), launches=0,
+                 max_abs_err=0.0, ms=round_["quantize_ms"], plain_ms=round_["quantize_plain_ms"],
+                 bound_ms=round_["quantize_bound_ms"], bound_by="bytes", library_ms=None)
+    return [gemm, quant]
+
+
 # ------------------------------------------------------------ phase 3
 
 
@@ -463,20 +530,20 @@ def phase_reference(torch, dev):
     """Decode path on the card (bf16, kernels) vs on the CPU (fp32, twins)."""
     from project_morpheus_tpu_torch.model import LlamaConfig
     from project_morpheus_tpu_torch.model import llama
-    from project_morpheus_tpu_torch.model.quant import quantize_params_int8
+    from project_morpheus_tpu_torch.model.quant import add_k_major_copies, quantize_params_int8
 
     cfg = LlamaConfig(vocab_size=1024, hidden_size=256, intermediate_size=512, num_layers=2,
                       num_heads=6, num_kv_heads=2, head_dim=128, max_seq_len=512,
                       rope_scaling_factor=1.0)
     cpu_params = quantize_params_int8(llama.init_llama_params(cfg, 7, "cpu", torch.float32))
 
-    card_params = {
+    card_params = add_k_major_copies({
         "embed": {k: v.to(dev) for k, v in cpu_params["embed"].items()},
         "ln_f": cpu_params["ln_f"].to(dev, torch.bfloat16),
         "layers": {k: ({"q": v["q"].to(dev), "scale": v["scale"].to(dev)} if isinstance(v, dict)
                        else v.to(dev, torch.bfloat16))
                    for k, v in cpu_params["layers"].items()},
-    }
+    })
     g = torch.Generator().manual_seed(3)
     prompt = torch.randint(3, 1000, (2, 40), generator=g, dtype=torch.int32)
     steps = torch.randint(3, 1000, (3, 2), generator=g, dtype=torch.int32)
@@ -651,10 +718,12 @@ async def serving_phases(card: str, records) -> str:
     import torch
 
     from project_morpheus_tpu_torch.adapters import runtime as rt
+    from project_morpheus_tpu_torch.model.quant import add_k_major_copies
     from project_morpheus_tpu_torch.model.tokenizer import format_prompt_ids
     from project_morpheus_tpu_torch.ops import decode_attention as da
     from project_morpheus_tpu_torch.ops import int8_gemv as ig
     from project_morpheus_tpu_torch.ops import prefill_attention as pa
+    from project_morpheus_tpu_torch.ops import w8a8_gemm as wg
     from project_morpheus_tpu_torch.tools.profile_serving import (
         BURST_PROMPT, LONG_PROMPT, PROMPTS, TOKENS_PER_REQUEST, round_timer, serving_runtime,
         warm)
@@ -665,6 +734,21 @@ async def serving_phases(card: str, records) -> str:
     torch.cuda.synchronize()
     log(f"3b runtime built in {time.perf_counter() - t0:.1f} s "
         f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card)")
+    # what the engine's K-major copies cost: the same copies made once more
+    # from the leaves without them, memory_allocated before and after
+    lp = rt3.engine.params["layers"]
+    bare = {"layers": {k: {n: t for n, t in w.items() if n != "qt"} if isinstance(w, dict) else w
+                       for k, w in lp.items()}}
+    before = torch.cuda.memory_allocated()
+    again = add_k_major_copies(bare)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    del again
+    kmajor = sum(w["qt"].numel() for w in lp.values() if isinstance(w, dict) and "qt" in w)
+    records[4]["k_major_copy_bytes"] = after - before
+    log(f"  w8a8 K-major copies: memory_allocated {before / 2**30:.3f} -> {after / 2**30:.3f} "
+        f"GiB making them once more (+{(after - before) / 1e9:.3f} GB, the engine's "
+        f"{kmajor / 1e9:.3f} GB) [{card}]")
     prompts = list(PROMPTS)
     seeds = [100 + i for i in range(len(prompts))]
     n_long = len(format_prompt_ids(LONG_PROMPT, "tara"))
@@ -686,19 +770,23 @@ async def serving_phases(card: str, records) -> str:
     da.reset_launch_counts()
     ig.reset_launch_counts()
     pa.reset_launch_counts()
+    wg.reset_launch_counts()
     replays0 = prefill_replays()
     with round_timer(eng) as rounds:
         out, traces1 = await measured_load(torch, eng, prompts, TOKENS_PER_REQUEST, seeds,
                                            "k=1 (main path)", card)
-    launches = {**da.LAUNCHES, **ig.LAUNCHES, **pa.LAUNCHES}
+    launches = {**da.LAUNCHES, **ig.LAUNCHES, **pa.LAUNCHES, **wg.LAUNCHES}
     for i, (pcm, _) in enumerate(out):
         check_pcm(np, pcm, TOKENS_PER_REQUEST // 7, 2 * fs, f"3b request {i}")
-    for name in ("decode_attention_int8_slots", "int8_gemv", "prefill_chunk_attention"):
+    for name in ("decode_attention_int8_slots", "int8_gemv", "prefill_chunk_attention",
+                 "w8a8_gemm", "w8a8_quantize"):
         if launches[name] <= 0:
             raise AssertionError(f"3b int8 serving never launched {name}: {launches}")
     records[0]["launches"] = launches["decode_attention_int8_slots"]
     records[2]["launches"] = launches["int8_gemv"]
     records[3]["launches"] = launches["prefill_chunk_attention"]
+    records[4]["launches"] = launches["w8a8_gemm"]
+    records[5]["launches"] = launches["w8a8_quantize"]
     n_rounds = max(rounds["rounds"], 1)
     records[3]["serving_round_ms"] = dict(rounds=rounds["rounds"],
                                          host=rounds["host_s"] / n_rounds * 1e3,
@@ -1150,6 +1238,7 @@ async def phase_checkpoint(card: str, records) -> None:
     from project_morpheus_tpu_torch.model.tokenizer import BPETokenizer, format_prompt_ids
     from project_morpheus_tpu_torch.ops import decode_attention as da
     from project_morpheus_tpu_torch.ops import int8_gemv as ig
+    from project_morpheus_tpu_torch.ops import w8a8_gemm as wg
 
     rt.set_runtime(None)  # drop phase 4's 3B runtime
     torch.cuda.empty_cache()
@@ -1220,21 +1309,24 @@ async def phase_checkpoint(card: str, records) -> None:
             if name == "loaded":
                 da.reset_launch_counts()
                 ig.reset_launch_counts()
+                wg.reset_launch_counts()
             t0 = time.perf_counter()
             out, wall, traces = await serve(list(CKPT_PROMPTS), 7 * 24, seeds)
             torch.cuda.synchronize()
             if name == "loaded":
-                launches = {**da.LAUNCHES, **ig.LAUNCHES}
+                launches = {**da.LAUNCHES, **ig.LAUNCHES, **wg.LAUNCHES}
             results[name] = (out, traces)
             for i, (pcm, _) in enumerate(out):
                 check_pcm(np, pcm, 24, 2 * fs, f"{name} request {i}")
             log(f"checkpoint: 4 seeded requests from the {name} runtime in {wall:.2f} s, TTFA "
                 f"{' / '.join(f'{t:.3f}' for _, t in out)} s (graphs captured on first use) [{card}]")
-        for kname in ("decode_attention_int8_slots", "int8_gemv"):
+        for kname in ("decode_attention_int8_slots", "int8_gemv", "w8a8_gemm", "w8a8_quantize"):
             if launches[kname] <= 0:
                 raise AssertionError(f"serving loaded weights never launched {kname}: {launches}")
         records[0]["checkpoint_launches"] = launches["decode_attention_int8_slots"]
         records[2]["checkpoint_launches"] = launches["int8_gemv"]
+        records[4]["checkpoint_launches"] = launches["w8a8_gemm"]
+        records[5]["checkpoint_launches"] = launches["w8a8_quantize"]
         (lo, lt), (do, dt) = results["loaded"], results["direct"]
         if lt != dt or any(len(t) == 0 for t in lt):
             raise AssertionError("token traces differ between loaded and direct params")
@@ -1933,6 +2025,7 @@ async def phase_mesh_serving(card: str, torch, records) -> None:
     from project_morpheus_tpu_torch.ops import decode_attention as da
     from project_morpheus_tpu_torch.ops import int8_gemv as ig
     from project_morpheus_tpu_torch.ops import prefill_attention as pa
+    from project_morpheus_tpu_torch.ops import w8a8_gemm as wg
     from project_morpheus_tpu_torch.parallel import make_mesh
     from project_morpheus_tpu_torch.parallel.mesh import STATE
     from project_morpheus_tpu_torch.tools.profile_serving import (
@@ -1951,10 +2044,11 @@ async def phase_mesh_serving(card: str, torch, records) -> None:
     da.reset_launch_counts()
     ig.reset_launch_counts()
     pa.reset_launch_counts()
+    wg.reset_launch_counts()
     torch.cuda.synchronize()
     _, wall_m, got = await serve(list(PROMPTS), TOKENS_PER_REQUEST, seeds)
     torch.cuda.synchronize()
-    launches = {**da.LAUNCHES, **ig.LAUNCHES, **pa.LAUNCHES}
+    launches = {**da.LAUNCHES, **ig.LAUNCHES, **pa.LAUNCHES, **wg.LAUNCHES}
     if got != ref or any(len(t) == 0 for t in ref):
         where = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
                  for a, b in zip(ref, got)]
@@ -1965,11 +2059,12 @@ async def phase_mesh_serving(card: str, torch, records) -> None:
     if not prefill:
         raise AssertionError("the mesh engine over NCCL captured no prefill round")
     if min(launches[k] for k in ("decode_attention_int8_slots", "int8_gemv",
-                                 "prefill_chunk_attention")) <= 0:
+                                 "prefill_chunk_attention", "w8a8_gemm", "w8a8_quantize")) <= 0:
         raise AssertionError(f"mesh engine launches {launches}")
     records[0]["mesh_launches"] = launches["decode_attention_int8_slots"]
     records[2]["mesh_launches"] = launches["int8_gemv"]
     records[3]["mesh_launches"] = launches["prefill_chunk_attention"]
+    records[4]["mesh_launches"] = launches["w8a8_gemm"]
     log(f"mesh (b): 3B int8 engine on a 1 x 1 mesh over {STATE.backend} (world of one, "
         f"collectives in the {mesh_eng.programs.captures} captured graphs, "
         f"{len(prefill)} of them prefill rounds, "
@@ -2080,6 +2175,7 @@ def tp2_main(device: str = "cuda", cfg=None) -> int:
     from project_morpheus_tpu_torch.model.sampling import SamplingParams
     from project_morpheus_tpu_torch.model.tokenizer import format_prompt_ids
     from project_morpheus_tpu_torch.ops import build, decode_attention as da, int8_gemv as ig
+    from project_morpheus_tpu_torch.ops import w8a8_gemm as wg
     from project_morpheus_tpu_torch.parallel import initialize_distributed, make_mesh
     from project_morpheus_tpu_torch.parallel.mesh import STATE
     from project_morpheus_tpu_torch.parallel.tensor import NO_TP
@@ -2174,6 +2270,7 @@ def tp2_main(device: str = "cuda", cfg=None) -> int:
 
     da.reset_launch_counts()
     ig.reset_launch_counts()
+    wg.reset_launch_counts()
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     sync()
     t0 = time.perf_counter()
@@ -2181,7 +2278,7 @@ def tp2_main(device: str = "cuda", cfg=None) -> int:
     sync()
     wall = time.perf_counter() - t0
     out.update(traces=traces, steps=eng.steps, wall=wall,
-               launches={**da.LAUNCHES, **ig.LAUNCHES})
+               launches={**da.LAUNCHES, **ig.LAUNCHES, **wg.LAUNCHES})
     if rank == 0:
         ref_eng = OrpheusEngine(full, cfg, ecfg, device=device)
         out["ref_traces"] = asyncio.run(run_engine(ref_eng))
@@ -2257,11 +2354,13 @@ def phase_tp2(card: str, records, device: str = "cuda", cfg=None,
         agree.append(sum(x == y for x, y in zip(a, b)))
         firsts.append(next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None))
     for r in res:
-        if device == "cuda" and (r["launches"]["decode_attention_int8_slots"] <= 0
-                                 or r["launches"]["int8_gemv"] <= 0):
+        if device == "cuda" and min(r["launches"][k] for k in (
+                "decode_attention_int8_slots", "int8_gemv", "w8a8_gemm", "w8a8_quantize")) <= 0:
             raise AssertionError(f"rank {r['rank']} launches {r['launches']}")
     records[0]["tp2_launches_a_rank"] = r0["launches"]["decode_attention_int8_slots"]
     records[2]["tp2_launches_a_rank"] = r0["launches"]["int8_gemv"]
+    if device == "cuda":
+        records[4]["tp2_launches_a_rank"] = r0["launches"]["w8a8_gemm"]
     gemv = ", ".join(f"{k} {v:.2e}" for k, v in r0["gemv"].items())
     log(f"tp2 (c): 2 ranks on one card over gloo (host-staged collectives, frame programs "
         f"eager), {'Orpheus-3B full width' if cfg is None else cfg}, int8 weights and KV, tp=2, slot kernel on 4 kv heads "
@@ -2424,6 +2523,7 @@ def run(card: str) -> None:
     phase_1b_heads(torch, da, dev)
     records.append(phase_gemv(torch, dev))
     records.append(phase_prefill_kernel(torch, dev))
+    records.extend(phase_w8a8(torch, dev))
     phase_reference(torch, dev)
     phase_graphs(torch, dev)
 

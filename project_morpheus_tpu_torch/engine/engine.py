@@ -62,7 +62,7 @@ import torch
 from ..codec.stream_decode import EMIT_SLOT, WINDOW_FRAMES, snac_stream_body
 from ..model.config import LlamaConfig, ORPHEUS_SPECIAL_TOKENS
 from ..model.llama import init_kv_cache, llama_decode_step, llama_prefill_chunk_batch
-from ..model.quant import fuse_layer_weights, is_quantized
+from ..model.quant import add_k_major_copies, fuse_layer_weights, is_quantized
 from ..model.sampling import SamplingParams, sample_logits
 from ..parallel.tensor import NO_TP, tensor_parallel
 from ..utils.device import resolve_device
@@ -204,6 +204,9 @@ class OrpheusEngine:
             self._codec = (_tree_to(codec[0], self.device), codec[1])
         self._w8a8 = bool(self.ecfg.prefill_w8a8) and any(
             is_quantized(w) for w in self.params["layers"].values())
+        if self._w8a8 and self.device.type == "cuda":
+            # the w8a8 GEMM reads each weight K-major: a copy a rank, on the card
+            self.params = add_k_major_copies(self.params)
         Vp, dev = model_cfg.padded_vocab, self.device
         i32 = dict(dtype=torch.int32, device=dev)
         n_local = self._slots.stop - self._slots.start

@@ -32,9 +32,10 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
-from ..ops import decode_attention, int8_gemv, prefill_attention
+from ..ops import decode_attention, int8_gemv, prefill_attention, w8a8_gemm
 
-_COUNTERS = (decode_attention.LAUNCHES, int8_gemv.LAUNCHES, prefill_attention.LAUNCHES)
+_COUNTERS = (decode_attention.LAUNCHES, int8_gemv.LAUNCHES, prefill_attention.LAUNCHES,
+             w8a8_gemm.LAUNCHES)
 
 
 def _snapshot() -> List[Dict[str, int]]:

@@ -126,11 +126,10 @@ def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _layer(lp: Dict, i: int) -> Dict:
-    """Layer ``i``'s slice of the stacked layer weights (views, no copies)."""
-    return {
-        k: ({"q": w["q"][i], "scale": w["scale"][i]} if is_quantized(w) else w[i])
-        for k, w in lp.items()
-    }
+    """Layer ``i``'s slice of the stacked layer weights (views, no copies;
+    an int8 leaf keeps its K-major copy ``qt`` where it has one)."""
+    return {k: ({n: t[i] for n, t in w.items()} if is_quantized(w) else w[i])
+            for k, w in lp.items()}
 
 
 def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:

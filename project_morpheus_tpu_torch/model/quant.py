@@ -6,10 +6,13 @@ code serves both representations.  Where XLA fuses the weight-only dequant
 into the dot for the JAX package, activations of at most
 ``int8_gemv.MAX_ROWS`` rows on the card (the whole decode step and the
 prefill's last-position logits) go to the hand-written int8 GEMV
-(``ops/int8_gemv.py``); everything else is a plain library matmul:
-dequant into the activation dtype (:func:`dequant_matmul`, the GEMV's
-plain twin), and ``torch._int_mm`` for the int8 x int8 (w8a8) chunk prefill
-on the card.
+(``ops/int8_gemv.py``); other weight-only products are a plain library
+matmul (dequant into the activation dtype, :func:`dequant_matmul`, the
+GEMV's plain twin).  The int8 x int8 (w8a8) chunk prefill runs the
+hand-written per-token quantize and int8 GEMM (``ops/w8a8_gemm.py``) on
+the card, from a K-major copy ``"qt": int8 (out, in)`` of each weight
+that :func:`add_k_major_copies` adds there; the CPU computes the same
+bits from ``"q"``.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import Dict, Union
 import torch
 
 from ..ops.int8_gemv import MAX_ROWS, int8_gemv
+from ..ops.w8a8_gemm import quantize_rows, w8a8_gemm
 
 QLeaf = Dict[str, torch.Tensor]
 Weight = Union[torch.Tensor, QLeaf]
@@ -78,16 +82,9 @@ def matmul_maybe_quant(h: torch.Tensor, w: Weight) -> torch.Tensor:
 
 
 def _int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Exact int32 product of 2-D int8 matrices.
-
-    On the card this is ``torch._int_mm`` (which wants more than 16 rows:
-    short inputs are zero-padded); on the CPU a float64 product, exact for
-    these sums (< 2**53)."""
-    if a.device.type == "cuda":
-        m = a.shape[0]
-        if m <= 16:
-            a = torch.cat([a, a.new_zeros((32 - m, a.shape[1]))])
-        return torch._int_mm(a, b)[:m]
+    """Exact int32 product of 2-D int8 matrices: a float64 product, exact
+    for these sums (< 2**53) on the CPU and on the card (the w8a8 GEMM's
+    plain version)."""
     return (a.double() @ b.double()).to(torch.int32)
 
 
@@ -95,19 +92,34 @@ def matmul_w8a8(h: torch.Tensor, w: Weight, amax=None) -> torch.Tensor:
     """``h @ w`` with per-token int8 activations and an int8 x int8 product
     (the chunk-prefill projections); plain weights use the dtype matmul.
     ``amax`` maps the per-token absolute maxima of ``h`` to those of the
-    whole row (a tensor-parallel rank holds part of a row-split input)."""
+    whole row (a tensor-parallel rank holds part of a row-split input).
+    On the card the leaf must hold its K-major copy (:func:`add_k_major_copies`)."""
     if not is_quantized(w):
         return h @ w
-    hf = h.float()
-    peak = hf.abs().amax(dim=-1, keepdim=True)
-    if amax is not None:
-        peak = amax(peak)
-    hsc = torch.clamp(peak, min=1e-8) / 127.0
-    h8 = torch.clamp(torch.round(hf / hsc), -127, 127).to(torch.int8)
-    y32 = _int8_matmul(h8.reshape(-1, h8.shape[-1]), w["q"])
-    y32 = y32.reshape(*h8.shape[:-1], y32.shape[-1])
-    y = y32.float() * hsc * w["scale"]
-    return y.to(h.dtype)
+    qt = w.get("qt")
+    if qt is None:
+        if h.is_cuda:
+            raise ValueError("a w8a8 product on the card needs the weight's K-major copy "
+                             "'qt': call add_k_major_copies on the params first")
+        qt = w["q"].T
+    h8, hsc = quantize_rows(h, amax)
+    return w8a8_gemm(h8, hsc, qt, w["scale"], h.dtype)
+
+
+def add_k_major_copies(params: Dict) -> Dict:
+    """``params`` with a K-major copy ``"qt"`` (..., out, in), contiguous,
+    beside ``"q"`` in each int8 layer leaf on the card, for the w8a8 GEMM
+    (8-bit wgmma reads both operands K-major).  A copy is made on the card,
+    once; leaves on the CPU, plain leaves and leaves that have one are
+    kept as they are.  The copies are not part of a checkpoint or a shard
+    spec: a mesh rank makes them from its own shards."""
+    layers = dict(params["layers"])
+    for key, w in layers.items():
+        if is_quantized(w) and w["q"].is_cuda and "qt" not in w:
+            layers[key] = {**w, "qt": w["q"].transpose(-1, -2).contiguous()}
+    out = dict(params)
+    out["layers"] = layers
+    return out
 
 
 def quantize_params_int8(params: Dict) -> Dict:

@@ -279,7 +279,7 @@ PREFILL_EDITS = {
          "      if (a.sm_scale > 1e30f) wgmma_pv<HD>(o, pf[kk], d, 1);\n"),
     ],
     "no_tma": [
-        ("                                          int c2, uint32_t bar) {\n",
+        ("hopper.cuh", "                                          int c2, uint32_t bar) {\n",
          "                                          int c2, uint32_t bar) {\n  return;\n"),
         ("        mbar_expect_tx(bar, bytes);\n", "        mbar_expect_tx(bar, 0u);\n"),
     ],
@@ -298,16 +298,19 @@ PREFILL_EDITS = {
 }
 
 
-def prefill_variant(src: str, name: str) -> str:
-    """``prefill_chunk_attention.cu`` with variant ``name``'s edits (each
-    anchor found exactly once, or for ``no_tma``'s expect_tx once per
-    layout)."""
-    for old, new in PREFILL_EDITS[name]:
+def prefill_variant(csrc, name: str) -> None:
+    """Apply variant ``name``'s edits to the copy of ``ops/csrc`` at
+    ``csrc``: an edit ``(old, new)`` to ``prefill_chunk_attention.cu``, an
+    edit ``(file, old, new)`` to that file (each anchor found exactly once,
+    or for ``no_tma``'s expect_tx once per layout)."""
+    for edit in PREFILL_EDITS[name]:
+        file, old, new = edit if len(edit) == 3 else (PREFILL_SRC, *edit)
+        path = csrc / file
+        src = path.read_text()
         n = src.count(old)
         if n == 0 or (n > 1 and "expect_tx" not in old):
-            raise ValueError(f"ablation anchor found {n} times in {PREFILL_SRC}: {old[:60]!r}")
-        src = src.replace(old, new)
-    return src
+            raise ValueError(f"ablation anchor found {n} times in {file}: {old[:60]!r}")
+        path.write_text(src.replace(old, new))
 
 
 def prefill_main(argv) -> None:
@@ -340,8 +343,7 @@ def prefill_main(argv) -> None:
                 if var_src.exists():
                     shutil.rmtree(var_src)
                 shutil.copytree(own_csrc, var_src)
-                cu = var_src / PREFILL_SRC
-                cu.write_text(prefill_variant(cu.read_text(), name))
+                prefill_variant(var_src, name)
                 build.CSRC, build.BUILD_DIR, build.SOURCES = var_src, var_src.parent, (PREFILL_SRC,)
                 build._libs.clear()
                 build.build_all()

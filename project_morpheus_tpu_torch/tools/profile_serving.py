@@ -9,21 +9,25 @@ round captured as a CUDA graph), serves one short warm-up request, then serves `
 (one ~2,500-token prompt and three short ones), ``TOKENS_PER_REQUEST``
 tokens each:
 
-1. unprofiled: wall time, ms per decode step, and host time per engine
-   phase (frame dispatch, i.e. a graph replay and its readback copies,
-   prefill rounds, routing), and each prefill round's host and device
-   time (``round_timer``; a round is a graph replay too);
+1. unprofiled: wall time, ms per decode step, each request's time to
+   first audio (TTFA), and host time per engine phase (frame dispatch,
+   i.e. a graph replay and its readback copies, prefill rounds, routing),
+   and each prefill round's host and device time (``round_timer``; a round
+   is a graph replay too); then a burst of four ``BURST_PROMPT`` requests
+   (J-batched prefill rounds) and their TTFA;
 2. under ``torch.profiler`` tracing the card only (``device_trace``): the
    device's busy share of the window (the union of its kernels' spans), and
    device time by kernel name, in
    total and per frame (a frame is ``steps_per_sync`` decode steps; the
-   tracer adds some host time of its own);
+   tracer adds some host time of its own), and the w8a8 GEMM's and
+   quantize's (``ops/w8a8_gemm.py``) device time in the window;
 3. the same for the three short prompts alone, a window of mostly frame
    programs: what one frame costs on the device;
 4. the same for the long prompt alone and one frame: mostly its three
    prefill rounds.
 
-Then prints the card's name and power limit.  ``chip_smoke.py`` serves
+The warmup line gives the bytes of the CUDA graphs' memory pool.  Then
+prints the card's name and power limit.  ``chip_smoke.py`` serves
 the same workload through ``serving_runtime``, ``warm`` and these
 constants.
 
@@ -172,19 +176,26 @@ def _wrap(engine, name, totals):
 
 
 async def _serve(prompts, max_tokens):
+    """Serve ``prompts`` at once: [(PCM bytes, seconds to the first PCM)]."""
     from ..adapters.local_torch import LocalTorchAdapter
     from ..model.sampling import SamplingParams
 
     async def pull(a):
-        n = 0
+        n, t0, ttfa = 0, time.perf_counter(), None
         while True:
             c = await a.pull(4096)
+            if c.pcm and ttfa is None:
+                ttfa = time.perf_counter() - t0
             n += len(c.pcm)
             if c.eos:
-                return n
+                return n, ttfa
 
     sp = SamplingParams(max_tokens=max_tokens)
     return await asyncio.gather(*[pull(LocalTorchAdapter(p, sampling=sp)) for p in prompts])
+
+
+def _ttfa(served) -> str:
+    return ", ".join("none" if t is None else f"{t:.3f}" for _, t in served)
 
 
 async def _profiled(eng, prompts, what: str, max_tokens: int = TOKENS_PER_REQUEST) -> None:
@@ -211,6 +222,10 @@ async def _profiled(eng, prompts, what: str, max_tokens: int = TOKENS_PER_REQUES
     for dev_us, count, key in rows[:TOP_KERNELS]:
         print(f"  {dev_us / 1e3:10.2f} ms {100 * dev_us / 1e6 / summed:5.1f}% "
               f"{dev_us / frames / 1e3:7.3f} ms/frame {count:7d}x  {key[:100]}")
+    for kernel in ("w8a8_gemm", "w8a8_quantize"):
+        us = sum(r[0] for r in rows if kernel in r[2])
+        print(f"  {kernel}: {us / 1e3:.2f} ms in {sum(r[1] for r in rows if kernel in r[2])} calls "
+              f"({100 * us / 1e6 / busy:.1f}% of the busy time)")
 
 
 async def _main() -> None:
@@ -218,7 +233,8 @@ async def _main() -> None:
 
     eng = serving_runtime().engine
     n, secs = warm(eng)
-    print(f"warmup: {n} programs in {secs:.2f} s, {eng.programs.captures} CUDA graphs")
+    print(f"warmup: {n} programs in {secs:.2f} s, {eng.programs.captures} CUDA graphs, graph "
+          f"pool {eng.programs.pool_bytes() / 2**30:.3f} GiB")
     await _serve(["Warm up."], 14)
     totals = collections.defaultdict(lambda: [0.0, 0])
     for name in ("_dispatch_frame", "_advance_prefill", "_process_frame"):
@@ -231,13 +247,19 @@ async def _main() -> None:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     steps = eng.steps - steps0
-    print(f"unprofiled: {wall:.3f} s wall, {steps} decode steps, {sum(pcm)} PCM bytes, "
-          f"{wall / max(steps, 1) * 1e3:.2f} ms per step over the window")
+    print(f"unprofiled: {wall:.3f} s wall, {steps} decode steps, {sum(b for b, _ in pcm)} PCM "
+          f"bytes, {wall / max(steps, 1) * 1e3:.2f} ms per step over the window; TTFA s "
+          f"{_ttfa(pcm)}")
     for name, (secs, n) in totals.items():
         print(f"  host {name}: {secs:.3f} s in {n} calls ({secs / max(n, 1) * 1e3:.2f} ms/call)")
     n = max(rounds["rounds"], 1)
     print(f"  prefill rounds: {rounds['rounds']}, host {rounds['host_s'] / n * 1e3:.2f} ms a "
           f"round, device {rounds['device_s'] / n * 1e3:.2f} ms a round")
+    with round_timer(eng) as rounds:
+        burst = await _serve([BURST_PROMPT] * 4, 7 * 12)
+    n = max(rounds["rounds"], 1)
+    print(f"burst of 4: TTFA s {_ttfa(burst)}; prefill rounds {rounds['rounds']}, device "
+          f"{rounds['device_s'] / n * 1e3:.2f} ms a round")
 
     await _profiled(eng, PROMPTS, "the whole load")
     # the short prompts alone: their prefill is a few small chunks, so the

@@ -1,6 +1,6 @@
-"""Device time of the decode-attention kernels, apart from their wrappers' host time.
+"""Device time of the kernels, apart from their wrappers' host time.
 
-    python -m project_morpheus_tpu_torch.tools.time_kernels [prefill]
+    python -m project_morpheus_tpu_torch.tools.time_kernels [prefill | w8a8]
 
 At the Orpheus-3B serving shapes (28 layers, 8 slots x 8192, KV=8, HD=128,
 G=3) and two sets of live lengths (``SHAPES``), times each kernel three ways:
@@ -30,6 +30,20 @@ this file copied in, to compare designs in one call).
 merge) with the torch profiler.  Prints one JSON line.  ``chip_smoke.py``
 phase 2 times with these functions, the int8 GEMV with ``chained_ms`` (a
 dependent add between calls) at ``gemv_shapes``.
+
+With the argument ``w8a8`` it checks and times the chunk prefill's w8a8
+kernels (``ops/w8a8_gemm.py``) at ``W8A8_PAIRS`` (the Orpheus-3B weights
+and their tp = 2 halves) and ``W8A8_ROWS`` (``w8a8_timings``): each equal
+to its plain version bit for bit, eager and replayed from a CUDA graph,
+also at the row tails ``W8A8_TAILS``; then, at each timed row count, the
+GEMM's and the quantize's device ms a call from a graph of 28 calls (the
+28 layers' weights cycled, so each call finds its weight cold in L2; the
+activations stay warm, as the quantize's output and the norm's are in a
+round) and host us a call, beside the bound, the plain versions' ms and
+three library yardsticks for the GEMM: ``torch._int_mm`` on the (K, N)
+weight (the call this kernel replaced), ``torch._int_mm`` on the K-major
+copy, and ``torch.matmul`` in bf16 on a weight dequantized ahead of time.
+The port never calls them.  Prints the records as text and one JSON line.
 It needs a CUDA card and fails without one.
 """
 from __future__ import annotations
@@ -297,6 +311,97 @@ def prefill_timings(torch, dev, check) -> dict:
     return out
 
 
+# the chunk prefill's w8a8 weights (K, N): Orpheus-3B's fused projections
+# and the halves a rank of tp = 2 holds; the rows a call takes (a round's
+# J x chunk), timed, and the row tails checked besides
+W8A8_PAIRS = {"wqkv": (3072, 5120), "wo": (3072, 3072), "wgu": (3072, 16384), "wd": (8192, 3072),
+              "wqkv/2": (3072, 2560), "wo/2": (1536, 3072), "wgu/2": (3072, 8192),
+              "wd/2": (4096, 3072)}
+W8A8_ROWS = (32, 128, 512, 1024, 2048, 4096)
+W8A8_TAILS = (1, 33, 1000)
+
+
+def w8a8_work(M: int, K: int, N: int):
+    """(bytes, operations) of one GEMM call: h8, the weight, both scales
+    read once, the bf16 output written once; a multiply-add per
+    (row, column, k)."""
+    return M * K + K * N + 4 * M + 4 * N + 2 * M * N, 2.0 * M * K * N
+
+
+def quantize_work(M: int, K: int):
+    """(bytes, fp32 operations) of one quantize call: bf16 rows read once,
+    int8 rows and the scales written once; per value a compare for the
+    maximum, a division, a rounding and two clamps."""
+    return 3 * M * K + 4 * M, 5.0 * M * K
+
+
+def w8a8_timings(torch, dev, rows=W8A8_ROWS, pairs=W8A8_PAIRS, tails=W8A8_TAILS) -> dict:
+    """The w8a8 kernels at ``pairs`` x (``tails`` + ``rows``): checked bit
+    for bit against their plain versions, eagerly (layers 0 and ``L - 1``)
+    and replayed from a captured graph; at ``rows``, timed (module
+    docstring).  Raises on a difference.  Returns {"pair M=rows": record}."""
+    from project_morpheus_tpu_torch.ops import w8a8_gemm as wg
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    for name, (K, N) in pairs.items():
+        q = torch.randint(-127, 128, (L, K, N), generator=g, device=dev, dtype=torch.int8)
+        qt = q.transpose(1, 2).contiguous()
+        scale = torch.rand(L, N, generator=g, device=dev) * 0.02 + 1e-3
+        wb = (q.float() * scale[:, None, :]).to(torch.bfloat16)  # the bf16 yardstick's weight
+        for M in (*tails, *rows):
+            what = f"w8a8 {name} {K}x{N} M={M}"
+            h = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+            h8, hsc = wg.quantize_rows(h)
+            want8, wantsc = wg.quantize_rows_plain(h)
+            if not (torch.equal(h8, want8) and torch.equal(hsc, wantsc)):
+                raise AssertionError(f"{what}: the quantize differs from its plain version")
+            for i in (0, L - 1):
+                got = wg.w8a8_gemm(h8, hsc, qt[i], scale[i], torch.bfloat16)
+                want = wg.w8a8_gemm_plain(h8, hsc, qt[i], scale[i], torch.bfloat16)
+                if not torch.equal(got, want):
+                    bad = int((got != want).sum())
+                    raise AssertionError(f"{what}, layer {i}: {bad} values differ from the plain "
+                                         "version")
+
+            def both():
+                x8, xsc = wg.quantize_rows(h)
+                return x8, wg.w8a8_gemm(x8, xsc, qt[0], scale[0], torch.bfloat16)
+
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                both()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                g8, gy = both()
+            graph.replay()
+            torch.cuda.synchronize()
+            eager = wg.w8a8_gemm(h8, hsc, qt[0], scale[0], torch.bfloat16)
+            if not (torch.equal(g8, h8) and torch.equal(gy, eager)):
+                raise AssertionError(f"{what}: a replayed graph differs from the eager calls")
+            del graph
+            if M not in rows:
+                continue
+            gemm = lambda i: wg.w8a8_gemm(h8, hsc, qt[i % L], scale[i % L], torch.bfloat16)  # noqa: E731
+            quant = lambda i: wg.quantize_rows(h)  # noqa: E731
+            out[f"{name} M={M}"] = dict(
+                K=K, N=N, M=M, tile_n=wg.block_n(M, N, torch.cuda.get_device_properties(
+                    dev).multi_processor_count),
+                device_ms=graph_ms(gemm), host_us=host_us(gemm),
+                plain_ms=events_ms(lambda i: wg.w8a8_gemm_plain(h8, hsc, qt[i % L], scale[i % L],
+                                                                torch.bfloat16), 3),
+                library_ms=graph_ms(lambda i: torch._int_mm(h8, q[i % L])),
+                library_kmajor_ms=graph_ms(lambda i: torch._int_mm(h8, qt[i % L].t())),
+                library_bf16_ms=graph_ms(lambda i: h @ wb[i % L]),
+                quantize_ms=graph_ms(quant), quantize_host_us=host_us(quant),
+                quantize_plain_ms=events_ms(lambda i: wg.quantize_rows_plain(h), 3))
+        del q, qt, scale, wb
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     import sys
 
@@ -308,6 +413,21 @@ def main() -> None:
         raise SystemExit("time_kernels: needs a CUDA card")
     build.build_all()
     dev = torch.device("cuda")
+    if sys.argv[1:] == ["w8a8"]:
+        shapes = w8a8_timings(torch, dev)
+        for name, r in shapes.items():
+            b_bytes, b_ops = w8a8_work(r["M"], r["K"], r["N"])
+            bound = max(b_bytes / 3.35e12, b_ops / 1979e12) * 1e3
+            qb = quantize_work(r["M"], r["K"])[0] / 3.35e12 * 1e3
+            print(f"{name} (tile {r['tile_n']}): gemm {r['device_ms']:.4f} ms, host "
+                  f"{r['host_us']:.1f} us, bound {bound:.4f} ms ({100 * bound / r['device_ms']:.1f}"
+                  f"%), plain {r['plain_ms']:.3f}, _int_mm (K, N) {r['library_ms']:.4f}, _int_mm "
+                  f"K-major {r['library_kmajor_ms']:.4f}, bf16 matmul {r['library_bf16_ms']:.4f}; "
+                  f"quantize {r['quantize_ms'] * 1e3:.2f} us (bound {qb * 1e3:.2f} us), host "
+                  f"{r['quantize_host_us']:.1f} us, plain {r['quantize_plain_ms']:.3f} ms",
+                  flush=True)
+        print(json.dumps({"card": torch.cuda.get_device_name(0), "w8a8": shapes}), flush=True)
+        return
     if sys.argv[1:] == ["prefill"]:
         fails = []
 

@@ -3,7 +3,8 @@ chunk-prefill attention too), the
 engine's frame programs replayed from CUDA graphs against the same
 programs run eagerly, an HF checkpoint directory loaded onto the card
 against the same params passed directly, train steps on the card against
-the CPU, and the training attention's SDPA path against its twin.  This file imports no JAX, so it runs where the port
+the CPU, the training attention's SDPA path against its twin, and the
+w8a8 quantize and GEMM against their plain versions, bit for bit.  This file imports no JAX, so it runs where the port
 runs (``python -m pytest tests/test_torch_cuda.py`` on a machine with a
 card); everywhere else each test skips.
 
@@ -11,7 +12,8 @@ Tolerances: a bf16 kernel output against an fp32 twin,
 |err| <= 1e-2 |ref| + 2e-3 (bf16 rounding of the output plus summation
 order); the int8 GEMV against its bf16 twin, 2**-6 |ref| + 1e-3 (the twin
 rounds three times to bf16: the product, the scale and the scaled output;
-the kernel once: up to about two bf16 ulps apart)."""
+the kernel once: up to about two bf16 ulps apart); the w8a8 kernels none
+(every step is exact or correctly rounded)."""
 import pytest
 import torch
 
@@ -21,6 +23,7 @@ from project_morpheus_tpu_torch.model.llama import init_llama_params
 from project_morpheus_tpu_torch.ops import decode_attention as da
 from project_morpheus_tpu_torch.ops import int8_gemv as ig
 from project_morpheus_tpu_torch.ops import prefill_attention as pa
+from project_morpheus_tpu_torch.ops import w8a8_gemm as wg
 from project_morpheus_tpu_torch.tools import graph_check as gc
 
 
@@ -346,3 +349,108 @@ def test_training_attention_card_matches_twin(cuda):
     assert torch.all(err <= 1e-2 * want.float().abs() + 2e-3), err.max()
     for a, b in zip(grads, wgrads):
         assert (a.float() - b.float()).abs().max() <= 2e-2 * b.float().abs().max()
+
+
+# the Orpheus-3B w8a8 weights (K, N) and two tp = 2 halves
+W8A8_SHAPES = [(3072, 5120), (3072, 3072), (3072, 16384), (8192, 3072), (1536, 3072),
+               (4096, 3072)]
+
+
+def _w8a8_inputs(g, cuda, M, K, N):
+    h = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
+    # row 0: peak 127, so hsc = 1 and the codes of .5, 1.5, 2.5, -.5 are ties
+    h[0].clamp_(-100, 100)
+    h[0, :5] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5])
+    qt = torch.randint(-127, 128, (N, K), generator=g, device=cuda, dtype=torch.int8)
+    scale = torch.rand(N, generator=g, device=cuda) * 0.02 + 1e-3
+    return h, qt, scale
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("M", [1, 33, 1000])
+@pytest.mark.parametrize("K,N", W8A8_SHAPES)
+def test_w8a8_kernels_equal_plain(cuda, M, K, N):
+    """The quantize and the GEMM equal their plain versions bit for bit at
+    row tails, at each 3B weight and two tp = 2 halves (128-wide tiles at
+    1 and 33 rows, 256-wide at 1000 but for N = 5120); a zero row takes
+    the 1e-8 floor."""
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    h, qt, scale = _w8a8_inputs(g, cuda, M, K, N)
+    if M > 1:
+        h[-1] = 0
+    wg.reset_launch_counts()
+    h8, hsc = wg.quantize_rows(h)
+    want8, wantsc = wg.quantize_rows_plain(h)
+    assert wg.LAUNCHES["w8a8_quantize"] == 1
+    assert torch.equal(h8, want8) and torch.equal(hsc, wantsc)
+    want = wg.w8a8_gemm_plain(h8, hsc, qt, scale, torch.bfloat16)
+    got = wg.w8a8_gemm(h8, hsc, qt, scale, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+    got32 = wg.w8a8_gemm(h8, hsc, qt, scale, torch.float32)
+    assert torch.equal(got32, wg.w8a8_gemm_plain(h8, hsc, qt, scale, torch.float32))
+
+
+@pytest.mark.requires_cuda
+def test_w8a8_quantize_amax_hook(cuda):
+    """With a hook the quantize launches twice (the rows' maxima, then the
+    rows from the hook's maxima) and equals the plain version given it; an
+    fp32 input too."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    h = torch.randn(2, 17, 256, generator=g, device=cuda).to(torch.bfloat16)
+    hook = lambda peak: peak * 1.5  # noqa: E731
+    for x in (h, h.float()):
+        wg.reset_launch_counts()
+        h8, hsc = wg.quantize_rows(x, amax=hook)
+        assert wg.LAUNCHES["w8a8_quantize"] == 2
+        want8, wantsc = wg.quantize_rows_plain(x, amax=hook)
+        assert h8.shape == x.shape and hsc.shape == (2, 17, 1)
+        assert torch.equal(h8, want8) and torch.equal(hsc, wantsc)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("M,K,N", [(1000, 3072, 16384), (33, 8192, 3072)])
+def test_w8a8_same_bits_eager_and_replayed(cuda, M, K, N):
+    """The quantize and the GEMM replayed from a captured CUDA graph give
+    the eager call's bits."""
+    g = torch.Generator(device=cuda).manual_seed(M)
+    h, qt, scale = _w8a8_inputs(g, cuda, M, K, N)
+
+    def run():
+        h8, hsc = wg.quantize_rows(h)
+        return wg.w8a8_gemm(h8, hsc, qt, scale, torch.bfloat16)
+
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+
+
+@pytest.mark.requires_cuda
+def test_w8a8_leaf_without_k_major_copy_raises(cuda):
+    """On the card matmul_w8a8 needs the K-major copy; add_k_major_copies
+    adds it and the product then equals the CPU's bits."""
+    from project_morpheus_tpu_torch.model.quant import (
+        add_k_major_copies, matmul_w8a8, quantize_weight)
+
+    g = torch.Generator().manual_seed(2)
+    w = quantize_weight(torch.randn(2, 256, 384, generator=g))
+    h = torch.randn(5, 256, generator=g).to(torch.bfloat16)
+    leaf = {n: t.to(cuda) for n, t in w.items()}
+    with pytest.raises(ValueError, match="K-major"):
+        matmul_w8a8(h.to(cuda), {n: t[1] for n, t in leaf.items()})
+    lp = add_k_major_copies({"layers": {"wo": leaf}})["layers"]["wo"]
+    assert torch.equal(lp["qt"], leaf["q"].transpose(1, 2))
+    got = matmul_w8a8(h.to(cuda), {n: t[1] for n, t in lp.items()})
+    want = matmul_w8a8(h, {n: t[1] for n, t in w.items()})
+    assert torch.equal(got.cpu(), want)
