@@ -14,6 +14,8 @@ Phases, each raising on failure (exit code 1, no result lines):
    from a CUDA graph of 28 calls, the wrapper's host time per call, the
    bound, and the twin's and (where one exists) the PyTorch library call's
    time; then check them at the Orpheus-1B head shape (HD=64, G=4);
+   then the int8 chunk-prefill attention at a tensor-parallel rank's kv
+   heads (one: Orpheus-3B and 1B at tp = 8; and 2, 4, 8) against its twin;
    then the int8 GEMV at the five 3B weight shapes (wqkv, wo, wgu, wd over
    28 stacked layers, and the tied lm_head), M = 1 and 8 rows: against its
    twin, and timed from CUDA graphs with a small dependent add between
@@ -28,13 +30,18 @@ Phases, each raising on failure (exit code 1, no result lines):
    twin, each shape timed from a CUDA graph of 28 calls beside its bound
    (causal operations against bytes) and, for bf16, SDPA with the same
    causal mask over the gathered history; then the chunk prefill's w8a8
-   quantize and GEMM (``ops/w8a8_gemm.py``) at the four 3B weights and
-   four tp = 2 halves, M = 32 to 4096 rows and the tails 1, 33, 1000,
-   equal to their plain versions bit for bit, eager and replayed from a
-   CUDA graph, timed beside their bounds (the GEMM's operations at the
-   int8 rate), the plain versions and, for the GEMM, ``torch._int_mm`` on
-   the (K, N) weight and on the K-major copy and ``torch.matmul`` on a
-   pre-dequantized bf16 weight;
+   quantize and GEMM (``ops/w8a8_gemm.py``) at the four 3B weights, the
+   tp = 2 halves, a tp = 8 rank's shares, 1B's ``wk`` at tp = 8 and four
+   N / K tails, M = 32 to 4096 rows and the tails 1, 33, 64, 65, 100,
+   1000, equal to their plain versions bit for bit, eager and replayed
+   from a CUDA graph, timed beside their bounds (the GEMM's operations at
+   the int8 rate), the plain versions and, for the GEMM, ``torch._int_mm``
+   on the (K, N) weight and on the K-major copy and ``torch.matmul`` on a
+   pre-dequantized bf16 weight, and the quantize + GEMM pair with and
+   without the dependent launch; the short rounds (32 and 128 rows)
+   weight by weight beside the K-major ``_int_mm``; then the five int8
+   scales that divide by 127, card against CPU at 3B shapes, dividing by
+   the number 127.0 (reported) and by a tensor (which must not differ);
 3. hold the port's decode path on the card (bf16, int8 weights, CUDA
    kernels, int8 and bf16 caches) against the same path on the CPU (fp32,
    plain twins) on a small model; then serve seeded requests on that model
@@ -358,6 +365,92 @@ def phase_1b_heads(torch, da, dev) -> float:
     return err
 
 
+def phase_prefill_kv_heads(torch, dev) -> float:
+    """The int8 chunk attention at a tensor-parallel rank's kv heads: one
+    (Orpheus-3B at tp = 8: H = 3, HD = 128; Orpheus-1B at tp = 8: H = 4,
+    HD = 64; a bf16 cache there too) and 2, 4 and 8 (G = 3, HD = 128), a
+    1,024-row chunk at 0 and two 512-row chunks at 1,536 in a 2,048-position
+    bucket with garbage past each frontier, against the twin
+    (``check_close``)."""
+    from project_morpheus_tpu_torch.ops import prefill_attention as pa
+    from project_morpheus_tpu_torch.tools import time_kernels as tk
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    B, S, hist = 4, 2048, 2048
+    err, n = 0.0, 0
+    for KV, G, HD in ((1, 3, 128), (1, 4, 64), (2, 3, 128), (4, 3, 128), (8, 3, 128)):
+        for quant in ((True, False) if KV == 1 else (True,)):
+            cache = tk.prefill_cache(torch, quant, dev, g, layers=1, slots=B, seq=S, kv=KV, hd=HD)
+            layer = {name: t[0] for name, t in cache.items()}
+            for slots, C, off in (([1], 1024, 0), ([3, 0], 512, hist - 512)):
+                tk.prefill_garbage(cache, slots, off + C)
+                st = torch.tensor(slots, dtype=torch.int32, device=dev)
+                ot = torch.full((len(slots),), off, dtype=torch.int32, device=dev)
+                q = torch.randn(len(slots), C, KV * G, HD, generator=g,
+                                device=dev).to(torch.bfloat16)
+                got = pa.prefill_chunk_attention(q, layer, st, ot, hist)
+                want = pa.prefill_chunk_attention_plain(q, layer, st, ot, hist).float()
+                torch.cuda.synchronize()
+                what = (f"prefill attention, {'int8' if quant else 'bf16'} cache, KV={KV}, "
+                        f"H={KV * G}, HD={HD}, J={len(slots)} C={C} at {off}")
+                err = max(err, check_close(got, want, what))
+                n += 1
+            del cache
+    log(f"kernel prefill_chunk_attention at one kv head (3B and 1B at tp = 8) and at 2, 4, 8: "
+        f"{n} shapes within check_close, max_abs_err {err:.3e}")
+    return err
+
+
+def phase_int8_scales(torch, dev) -> None:
+    """The five int8 scales that divide by 127 (the KV cache's, the dense
+    int8 branch's query and probability scales, the weights' and the
+    embedding's) at Orpheus-3B shapes, on the card against the same function
+    on the CPU: the share that differ with the division by a Python number
+    the code had (PyTorch's CUDA division by a number multiplies by its
+    reciprocal) and with the division the sites now make
+    (``quant.div127``), which must be 0."""
+    from project_morpheus_tpu_torch.model import LlamaConfig, llama, quant
+
+    cfg = LlamaConfig.orpheus_3b()
+    KV, HD, D = cfg.num_kv_heads, cfg.head_dim, cfg.hidden_size
+    G = cfg.num_heads // KV
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    vs = torch.rand(8, KV, 1, 2048, generator=g, device=dev) * 0.02 + 0.002
+    sites = {  # name: (the site now, the site as it divided before, an input)
+        "quantize_kv (a chunk's K, 1024 x 8 heads)": (
+            lambda x: llama.quantize_kv(x)[1],
+            lambda x: torch.clamp(x.abs().amax(dim=-1) / 127.0, min=1e-8),
+            rnd(1024, KV, HD).to(torch.bfloat16).float()),
+        "dense q scales (64 steps x 8 slots)": (
+            llama.int8_q_scale, lambda x: torch.clamp(x.abs().amax(dim=-1), min=1e-8) / 127.0,
+            rnd(64, 8, KV, G, HD).to(torch.bfloat16).float()),
+        "dense p scales (8 slots, bucket 2048)": (
+            llama.int8_p_scale, lambda x: torch.clamp(x.amax(dim=-1), min=1e-30) / 127.0,
+            torch.softmax(rnd(8, KV, G, 2048) * 4, dim=-1) * vs),
+        "weight scales (wqkv, 3072 x 5120)": (
+            lambda x: quant._quant_2d(x)["scale"],
+            lambda x: torch.clamp(x.abs().amax(dim=0) / 127.0, min=1e-12),
+            rnd(D, 5120) * 0.02),
+        "embedding scales (one of 8 chunks)": (
+            lambda x: quant._quant_rows(x)[1],
+            lambda x: torch.clamp(x.abs().amax(dim=1) / 127.0, min=1e-12),
+            rnd(cfg.padded_vocab // 8, D) * 0.02),
+    }
+    for name, (site, before, x) in sites.items():
+        xc = x.cpu()
+        was = (before(x).cpu() != before(xc)).float().mean().item()
+        now = (site(x).cpu() != site(xc)).float().mean().item()
+        log(f"int8 scales, {name}: card vs CPU differ in {100 * was:.3f}% dividing by the number "
+            f"127.0, {100 * now:.3f}% dividing by a tensor")
+        if now != 0.0:
+            raise AssertionError(f"int8 scales, {name}: {100 * now:.3f}% differ between the card "
+                                 "and the CPU")
+
+
 def phase_gemv(torch, dev):
     """The int8 GEMV at the 3B weight shapes against its twin (M = 1, 8),
     timed per call; returns its kernel record (times per decode step:
@@ -472,9 +565,13 @@ def phase_prefill_kernel(torch, dev):
 def phase_w8a8(torch, dev):
     """The chunk prefill's w8a8 quantize and GEMM against their plain
     versions, bit for bit, eager and replayed from a CUDA graph, at every
-    ``time_kernels.W8A8_PAIRS`` weight (Orpheus-3B's and the tp = 2
-    halves) and ``W8A8_ROWS`` + ``W8A8_TAILS`` row count, timed at the
-    rows (``time_kernels.w8a8_timings``).  Returns the GEMM's and the
+    ``time_kernels.W8A8_PAIRS`` weight (Orpheus-3B's, the tp = 2 halves, a
+    tp = 8 rank's and 1B's ``wk`` at tp = 8) and the N and K tails
+    (``W8A8_SHAPE_TAILS``), at ``W8A8_ROWS`` + ``W8A8_TAILS`` row counts,
+    timed at the rows (``time_kernels.w8a8_timings``), the quantize + GEMM
+    pair with and without the dependent launch.  Logs the short rounds (32
+    and 128 rows) weight by weight beside ``_int_mm`` on the K-major copy,
+    and their sum's share of the bytes bound.  Returns the GEMM's and the
     quantize's records, each headed by one 1,024-row round's 28 layers x
     four 3B projections (summed device ms); every shape is in the log."""
     from project_morpheus_tpu_torch.tools import time_kernels as tk
@@ -486,26 +583,49 @@ def phase_w8a8(torch, dev):
         q_ms, q_by = bound(*tk.quantize_work(r["M"], r["K"]), H100_FP32_OPS_PER_S)
         r.update(bound_ms=b_ms, bound_by=b_by, bound_frac=b_ms / r["device_ms"],
                  quantize_bound_ms=q_ms, quantize_bound_by=q_by)
-        log(f"  w8a8 [{name}, tile {r['tile_n']}]: gemm {r['device_ms']:.4f} ms/call, host "
+        log(f"  w8a8 [{name}, plan {r['plan']}]: gemm {r['device_ms']:.4f} ms/call, host "
             f"{r['host_us']:.1f} us, bound {b_ms:.4f} ms by {b_by} "
             f"({100 * r['bound_frac']:.1f}%), plain {r['plain_ms']:.3f} ms, _int_mm (K, N) "
             f"{r['library_ms']:.4f}, _int_mm K-major {r['library_kmajor_ms']:.4f}, bf16 matmul "
             f"{r['library_bf16_ms']:.4f}; quantize {r['quantize_ms'] * 1e3:.2f} us/call (bound "
             f"{q_ms * 1e3:.2f} us by {q_by}), host {r['quantize_host_us']:.1f} us, plain "
-            f"{r['quantize_plain_ms'] * 1e3:.1f} us")
-    head = [shapes[f"{n} M=1024"] for n in ("wqkv", "wo", "wgu", "wd")]
+            f"{r['quantize_plain_ms'] * 1e3:.1f} us; quantize + gemm {r['pair_ms'] * 1e3:.2f} "
+            f"us with the dependent launch, {r['pair_nodep_ms'] * 1e3:.2f} us without")
+    weights = ("wqkv", "wo", "wgu", "wd")
+    # the short prompts' rounds weight by weight, beside _int_mm on the K-major copy
+    short = {}
+    for M in tk.W8A8_SHORT_ROWS:
+        recs = [shapes[f"{n} M={M}"] for n in weights]
+        tot = {k: sum(r[k] for r in recs) for k in ("device_ms", "library_kmajor_ms", "bound_ms",
+                                                    "pair_ms", "pair_nodep_ms", "quantize_ms")}
+        slower = [n for n, r in zip(weights, recs) if r["device_ms"] > r["library_kmajor_ms"]]
+        per = "; ".join(f"{n} {r['device_ms'] * 1e3:.2f} us (_int_mm K-major "
+                        f"{r['library_kmajor_ms'] * 1e3:.2f}, bound {r['bound_ms'] * 1e3:.2f})"
+                        for n, r in zip(weights, recs))
+        log(f"w8a8 GEMM at {M} rows: {per}; sum {tot['device_ms']:.4f} ms, "
+            f"{100 * tot['bound_ms'] / tot['device_ms']:.1f}% of its bytes bound "
+            f"{tot['bound_ms']:.4f} ms (_int_mm K-major {tot['library_kmajor_ms']:.4f}); slower "
+            f"than _int_mm: {slower or 'none'}; quantize + GEMM pairs {tot['pair_ms']:.4f} ms "
+            f"with the dependent launch, {tot['pair_nodep_ms']:.4f} without")
+        short[M] = dict(tot, bound_frac=tot["bound_ms"] / tot["device_ms"], slower=slower,
+                        weights={n: {k: r[k] for k in ("plan", "device_ms", "library_kmajor_ms",
+                                                       "bound_ms", "pair_ms", "pair_nodep_ms")}
+                                 for n, r in zip(weights, recs)})
+    head = [shapes[f"{n} M=1024"] for n in weights]
     round_ = {k: tk.L * sum(r[k] for r in head)
               for k in ("device_ms", "plain_ms", "library_ms", "library_kmajor_ms",
                         "library_bf16_ms", "bound_ms", "quantize_ms", "quantize_plain_ms",
-                        "quantize_bound_ms")}
+                        "quantize_bound_ms", "pair_ms", "pair_nodep_ms")}
     log(f"kernels w8a8: equal to the plain versions bit for bit at {len(tk.W8A8_PAIRS)} weights "
         f"x {len(tk.W8A8_ROWS) + len(tk.W8A8_TAILS)} row counts, eager and replayed; a "
         f"1,024-row round's 28 x 4 GEMMs {round_['device_ms']:.3f} ms (bound "
         f"{round_['bound_ms']:.3f}, {100 * round_['bound_ms'] / round_['device_ms']:.1f}%; "
         f"_int_mm (K, N) {round_['library_ms']:.3f}, K-major {round_['library_kmajor_ms']:.3f}, "
         f"bf16 matmul {round_['library_bf16_ms']:.3f}), quantizes "
-        f"{round_['quantize_ms']:.3f} ms (bound {round_['quantize_bound_ms']:.3f}); "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{round_['quantize_ms']:.3f} ms (bound {round_['quantize_bound_ms']:.3f}, "
+        f"{100 * round_['quantize_bound_ms'] / round_['quantize_ms']:.1f}% of it), quantize + "
+        f"GEMM pairs {round_['pair_ms']:.3f} ms with the dependent launch, "
+        f"{round_['pair_nodep_ms']:.3f} without; {time.perf_counter() - t0:.1f} s")
     src = "project_morpheus_tpu_torch/ops/csrc/w8a8_gemm.cu"
     replaces = "project_morpheus_tpu/model/quant.py:{} (matmul_w8a8: XLA's {}; not a Pallas kernel)"
     gemm = dict(name="w8a8_gemm", route="cuda", source=src,
@@ -515,11 +635,15 @@ def phase_w8a8(torch, dev):
                 bound_ms=round_["bound_ms"], bound_by="operations",
                 library_ms=round_["library_ms"],
                 library_kmajor_ms=round_["library_kmajor_ms"],
-                library_bf16_ms=round_["library_bf16_ms"])
+                library_bf16_ms=round_["library_bf16_ms"], pair_ms=round_["pair_ms"],
+                pair_nodep_ms=round_["pair_nodep_ms"],
+                short_rounds={M: {k: v for k, v in r.items() if k != "weights"}
+                              for M, r in short.items()})
     quant = dict(name="w8a8_quantize", route="cuda", source=src,
                  replaces=replaces.format("84-88", "per-token int8 quantization"), launches=0,
                  max_abs_err=0.0, ms=round_["quantize_ms"], plain_ms=round_["quantize_plain_ms"],
-                 bound_ms=round_["quantize_bound_ms"], bound_by="bytes", library_ms=None)
+                 bound_ms=round_["quantize_bound_ms"], bound_by="bytes", library_ms=None,
+                 short_rounds={M: dict(ms=r["quantize_ms"]) for M, r in short.items()})
     return [gemm, quant]
 
 
@@ -787,6 +911,11 @@ async def serving_phases(card: str, records) -> str:
     records[3]["launches"] = launches["prefill_chunk_attention"]
     records[4]["launches"] = launches["w8a8_gemm"]
     records[5]["launches"] = launches["w8a8_quantize"]
+    for i, kname in ((4, "w8a8_gemm"), (5, "w8a8_quantize")):  # on the short rounds
+        records[i]["launches_short"] = launches[kname + "_short"]
+    log(f"w8a8 launches in the main-path load: GEMM {launches['w8a8_gemm']} "
+        f"({launches['w8a8_gemm_short']} on <= {wg.SHORT_ROWS} rows), quantize "
+        f"{launches['w8a8_quantize']} ({launches['w8a8_quantize_short']})")
     n_rounds = max(rounds["rounds"], 1)
     records[3]["serving_round_ms"] = dict(rounds=rounds["rounds"],
                                          host=rounds["host_s"] / n_rounds * 1e3,
@@ -2521,9 +2650,11 @@ def run(card: str) -> None:
 
     records = phase_kernels(torch, da, dev)
     phase_1b_heads(torch, da, dev)
+    phase_prefill_kv_heads(torch, dev)
     records.append(phase_gemv(torch, dev))
     records.append(phase_prefill_kernel(torch, dev))
     records.extend(phase_w8a8(torch, dev))
+    phase_int8_scales(torch, dev)
     phase_reference(torch, dev)
     phase_graphs(torch, dev)
 

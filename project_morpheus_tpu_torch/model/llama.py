@@ -45,6 +45,7 @@ from ..ops.prefill_attention import prefill_chunk_attention
 from ..parallel.tensor import as_tp
 from .config import LlamaConfig
 from .quant import (
+    div127,
     is_quantized,
     matmul_maybe_quant,
     matmul_w8a8,
@@ -120,9 +121,20 @@ def kv_cache_is_quantized(cache: KVCache) -> bool:
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-position symmetric int8 over the last axis: (int8, fp32 scale)."""
     xf = x.float()
-    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    scale = torch.clamp(div127(xf.abs().amax(dim=-1)), min=1e-8)
     q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
     return q, scale
+
+
+def int8_q_scale(qg: torch.Tensor) -> torch.Tensor:
+    """The dense int8 branch's per-row query scales (fp32 ``qg``, rows on
+    the last axis)."""
+    return div127(torch.clamp(qg.abs().amax(dim=-1), min=1e-8))
+
+
+def int8_p_scale(pv: torch.Tensor) -> torch.Tensor:
+    """The dense int8 branch's per-row scales of the v-scaled probabilities."""
+    return div127(torch.clamp(pv.amax(dim=-1), min=1e-30))
 
 
 def _layer(lp: Dict, i: int) -> Dict:
@@ -366,14 +378,14 @@ def llama_decode_step(
             ks_s = sc_s[..., :KV].transpose(1, 2)  # (B, KV, bkt)
             vs_s = sc_s[..., KV:].transpose(1, 2)
             qg = q.reshape(B, KV, G, HD).float()
-            qsc = torch.clamp(qg.abs().amax(dim=-1), min=1e-8) / 127.0  # (B, KV, G)
+            qsc = int8_q_scale(qg)  # (B, KV, G)
             q8 = torch.clamp(torch.round(qg / qsc[..., None]), -127, 127)
             s32 = _int_dot(q8, k_s, "bkgd,bskd->bkgs")
             scores = s32.float() * qsc[..., None] * ks_s[:, :, None, :] * (HD**-0.5)
             scores = torch.where(key_mask[:, None, None, :], scores, torch.full_like(scores, -1e30))
             probs = torch.softmax(scores, dim=-1)
             pv = probs * vs_s[:, :, None, :]
-            psc = torch.clamp(pv.amax(dim=-1), min=1e-30) / 127.0
+            psc = int8_p_scale(pv)
             p8 = torch.clamp(torch.round(pv / psc[..., None]), -127, 127)
             o32 = _int_dot(p8, v_s, "bkgs,bskd->bkgd")
             attn = (o32.float() * psc[..., None]).reshape(B, 1, cfg.num_heads * HD).to(x.dtype)

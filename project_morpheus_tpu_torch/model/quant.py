@@ -33,12 +33,40 @@ def is_quantized(w: Weight) -> bool:
     return isinstance(w, dict) and "q" in w
 
 
+_C127: Dict[torch.device, torch.Tensor] = {}
+
+
+def div127(x: torch.Tensor) -> torch.Tensor:
+    """``x / 127`` as an IEEE division on every device, as the CPU and the
+    JAX package run op by op compute it: PyTorch's CUDA division by a Python
+    number multiplies by its reciprocal, which moves some quotients by an
+    ulp.  The divisor is a tensor on ``x``'s device, made once outside any
+    graph capture and kept (a capture that finds none makes its own with a
+    fill kernel: never a copy from the host)."""
+    c = _C127.get(x.device)
+    if c is None:
+        if x.is_cuda and torch.cuda.is_current_stream_capturing():
+            return x / x.new_full((), 127.0)
+        with torch.inference_mode(False):
+            c = torch.full((), 127.0, dtype=torch.float32, device=x.device)
+        _C127[x.device] = c
+    return x / c
+
+
 def _quant_2d(w: torch.Tensor) -> QLeaf:
     wf = w.float()
     amax = wf.abs().amax(dim=0, keepdim=True)
-    scale = torch.clamp(amax / 127.0, min=1e-12)
+    scale = torch.clamp(div127(amax), min=1e-12)
     q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return {"q": q, "scale": scale[0]}
+
+
+def _quant_rows(part: torch.Tensor):
+    """Per-row int8 of an embedding chunk: (int8 rows, fp32 scales)."""
+    part = part.float()
+    amax = part.abs().amax(dim=1, keepdim=True)
+    scale = torch.clamp(div127(amax), min=1e-12)
+    return torch.clamp(torch.round(part / scale), -127, 127).to(torch.int8), scale[:, 0]
 
 
 def quantize_weight(w: torch.Tensor) -> QLeaf:
@@ -136,11 +164,9 @@ def quantize_params_int8(params: Dict) -> Dict:
     n = embed.shape[0]
     step = max(1, n // 8)
     for lo in range(0, n, step):
-        part = embed[lo : lo + step].float()
-        amax = part.abs().amax(dim=1, keepdim=True)
-        scale = torch.clamp(amax / 127.0, min=1e-12)
-        chunks.append(torch.clamp(torch.round(part / scale), -127, 127).to(torch.int8))
-        scales.append(scale[:, 0])
+        q, scale = _quant_rows(embed[lo : lo + step])
+        chunks.append(q)
+        scales.append(scale)
     out["embed"] = {"q": torch.cat(chunks), "scale": torch.cat(scales)}
     if "lm_head" in params:
         out["lm_head"] = quantize_weight(params["lm_head"])

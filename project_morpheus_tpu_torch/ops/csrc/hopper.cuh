@@ -40,6 +40,16 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// 1-D tensor copy of one box into this block's shared memory
+__device__ __forceinline__ void tma_load1(uint32_t dst, const CUtensorMap* map, int c0,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2}], [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(bar)
+      : "memory");
+}
+
 // 2-D tensor copy of one box into this block's shared memory
 __device__ __forceinline__ void tma_load2(uint32_t dst, const CUtensorMap* map, int c0, int c1,
                                           uint32_t bar) {

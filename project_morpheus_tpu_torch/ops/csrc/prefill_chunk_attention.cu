@@ -38,7 +38,13 @@
 //   and the chunk's offset come from device memory as coordinates, so one
 //   launch serves any offsets and slots.  bf16 tiles land 128-byte
 //   swizzled, as wgmma's descriptors read them (6 stages).  int8 tiles land
-//   as they are, with one box of the tile's scale rows (3 stages); the four
+//   as they are, with the tile's scale rows (3 stages): one box of a 3-D map
+//   (2KV, positions, lanes) where KV is even; where it is odd (one kv head
+//   on a tensor-parallel rank), whose 2KV x 4-byte rows TMA cannot stride
+//   (global strides are multiples of 16 bytes), the tile's kBK x 2KV
+//   contiguous floats of the lane through a 1-D map over the whole array,
+//   in boxes of 128 floats from the 16-byte boundary at or before them
+//   (kFlatScales; rows past hist zeroed here); the four
 //   warps of the copying warpgroup convert each to the swizzled bf16 layout
 //   (exact: a byte-permute and bit operations, as int8_gemv.cu does) in a
 //   second ring (3 stages), with this head's k and v scales in the order
@@ -112,7 +118,13 @@ struct Args {
   int raw_stage;           // int8: bytes of one copied stage (K, V, scale rows)
   int raw_stages;          // int8: stages of the copied ring
   float sm_scale;
+  int S;           // flat scales: positions a cache lane holds
+  int scale_lead;  // flat scales: floats from the map's 16-byte aligned base to the array
 };
+
+// floats a box of the flat scale map: a tile's kBK x 2KV are whole boxes,
+// and one box more covers a start moved back to a 16-byte boundary
+constexpr int kScaleBox = 128;
 
 constexpr int align1k(int x) { return (x + 1023) / 1024 * 1024; }
 
@@ -127,7 +139,10 @@ struct Geom {
   static constexpr int kTileRaw = kBK * HD;      // an int8 K or V tile
   // converted stage: K, V, this head's k scales, v scales
   static constexpr int kCvt = align1k(2 * kTileBf + 2 * kBK * 4);
-  static int raw_stage(int KV) { return align1k(2 * kTileRaw + kBK * 2 * KV * 4); }
+  // (an odd KV's flat scale rows take one box more)
+  static int raw_stage(int KV) {
+    return align1k(2 * kTileRaw + (kBK * 2 * KV + (KV % 2 ? kScaleBox : 0)) * 4);
+  }
   // dynamic shared memory: Q, then the rings; 1 KB more to align the base
   // to the swizzle's 1 KB
   static int smem(int KV, int raw_stages) {
@@ -309,7 +324,7 @@ __device__ __forceinline__ uint32_t q_scaled(uint32_t pair, float scale) {
 
 // ------------------------------------------------------------ the kernel
 
-template <typename T, int HD>
+template <typename T, int HD, bool kFlatScales>
 __global__ void __launch_bounds__(kThreads, 1)
     prefill_chunk_attn(const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
@@ -371,11 +386,20 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint32_t bar = smem_u32(&full[s]);
       if constexpr (kQuant) {
         const uint32_t st = ring + s * a.raw_stage;
-        const uint32_t bytes = 2 * Ge::kTileRaw + kBK * 2 * a.KV * 4;
+        const uint32_t bytes =
+            2 * Ge::kTileRaw + (kBK * 2 * a.KV + (kFlatScales ? kScaleBox : 0)) * 4;
         mbar_expect_tx(bar, bytes);
         tma_load3(st, &kmap, h * HD, t * kBK, b, bar);
         tma_load3(st + Ge::kTileRaw, &vmap, h * HD, t * kBK, b, bar);
-        tma_load3(st + 2 * Ge::kTileRaw, &smap, 0, t * kBK, b, bar);
+        if constexpr (kFlatScales) {
+          // from the 16-byte boundary at or before the tile's first scale (a
+          // tensor copy's start in global memory), one box more
+          const int start = (a.scale_lead + (b * a.S + t * kBK) * 2 * a.KV) & ~3;
+          for (int i = 0; i <= kBK * 2 * a.KV; i += kScaleBox)
+            tma_load1(st + 2 * Ge::kTileRaw + 4 * i, &smap, start + i, bar);
+        } else {
+          tma_load3(st + 2 * Ge::kTileRaw, &smap, 0, t * kBK, b, bar);
+        }
       } else {
         const uint32_t st = ring + s * Ge::kStageBf;
         const uint32_t bytes = Ge::kStageBf;
@@ -439,12 +463,17 @@ __global__ void __launch_bounds__(kThreads, 1)
               make_uint4(o[4], o[5], o[6], o[7]);
         }
         // scales in the order the consumers read them (scale_slot), the k
-        // scales times log2 e (the softmax works in base 2)
-        const float* sc = reinterpret_cast<const float*>(raw + 2 * Ge::kTileRaw);
+        // scales times log2 e (the softmax works in base 2); flat scale rows
+        // past hist (the lane's later positions, or the next lane's) as
+        // zeros, as the 3-D map's are
+        const float* sc = reinterpret_cast<const float*>(raw + 2 * Ge::kTileRaw) +
+                          (kFlatScales ? (a.scale_lead + (b * a.S + t * kBK) * 2 * a.KV) & 3 : 0);
         float* dsc = reinterpret_cast<float*>(dst + 2 * Ge::kTileBf);
         for (int i = tid; i < 2 * kBK; i += kConvThreads) {
           const int which = i / kBK, r = i % kBK;  // k scales, then v scales
-          const float f = sc[r * 2 * a.KV + which * a.KV + h];
+          const float f = !kFlatScales || t * kBK + r < a.hist
+                              ? sc[r * 2 * a.KV + which * a.KV + h]
+                              : 0.f;
           dsc[which * kBK + scale_slot<kBK>(r)] = which ? f : f * kLog2e;
         }
         fence_async_smem();
@@ -709,7 +738,22 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ------------------------------------------------------------ host side
 
-constexpr int kBadHeadDim = -1, kBadShape = -2, kEncodeFailed = -3, kOddKv = -4;
+constexpr int kBadHeadDim = -1, kBadShape = -2, kEncodeFailed = -3;
+
+// a 1-D map of `n` `elem`-byte values from ptr (16-byte aligned), boxes of
+// `box` values; zeros past the end
+bool encode1(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, long long n,
+             int box) {
+  const EncodeFn fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {0};  // none at rank 1
+  const cuuint32_t boxes[1] = {static_cast<cuuint32_t>(box)};
+  const cuuint32_t unit[1] = {1};
+  return fn(map, type, 1, const_cast<void*>(ptr), dims, strides, boxes, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 // a 3-D map (innermost first) of `elem`-byte values: dims, byte strides of
 // dims 1 and 2, a box; zeros past the edges
@@ -728,7 +772,7 @@ bool encode3(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, long l
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kFlatScales>
 int launch(const void* k, const void* v, const void* scale, Args a, int J, int B, int S,
            cudaStream_t stream) {
   using Ge = Geom<T, HD>;
@@ -736,16 +780,31 @@ int launch(const void* k, const void* v, const void* scale, Args a, int J, int B
   CUtensorMap km, vm, sm;
   bool ok;
   if constexpr (Ge::kQuant) {
-    // (KV*HD, S, B) int8, boxes of one kv head's HD bytes x the tile's positions;
-    // scales (2KV, S, B) fp32, boxes of whole rows x the tile's positions
-    if (KV % 2 != 0) return kOddKv;  // a scale row must be a multiple of 16 bytes
+    // (KV*HD, S, B) int8, boxes of one kv head's HD bytes x the tile's positions
     const long long row = (long long)KV * HD;
     ok = encode3(&km, k, CU_TENSOR_MAP_DATA_TYPE_UINT8, row, a.hist, B, row, row * S, HD,
                  Ge::kBK, CU_TENSOR_MAP_SWIZZLE_NONE) &&
          encode3(&vm, v, CU_TENSOR_MAP_DATA_TYPE_UINT8, row, a.hist, B, row, row * S, HD,
-                 Ge::kBK, CU_TENSOR_MAP_SWIZZLE_NONE) &&
-         encode3(&sm, scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2 * KV, a.hist, B, 2 * KV * 4,
-                 2LL * KV * 4 * S, 2 * KV, Ge::kBK, CU_TENSOR_MAP_SWIZZLE_NONE);
+                 Ge::kBK, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if constexpr (kFlatScales) {
+      // scales (B * S * 2KV) fp32 from the 16-byte boundary at or before the
+      // array, boxes of 128 floats: a tile's kBK x 2KV = 128 KV are whole boxes
+      static_assert(Ge::kBK * 2 % kScaleBox == 0, "a tile's scale rows are whole boxes");
+      const uintptr_t sp = reinterpret_cast<uintptr_t>(scale);
+      a.S = S;
+      a.scale_lead = static_cast<int>(sp & 15) / 4;
+      const long long n_scales = (long long)B * S * 2 * KV + a.scale_lead;
+      if (n_scales > 0x7FFFFFFFLL) return kBadShape;  // TMA coordinates are int32
+      ok = ok && encode1(&sm, reinterpret_cast<const void*>(sp & ~static_cast<uintptr_t>(15)),
+                         CU_TENSOR_MAP_DATA_TYPE_FLOAT32, n_scales, kScaleBox);
+    } else {
+      // scales (2KV, S, B) fp32, boxes of whole rows x the tile's positions (a
+      // row, 8 KV bytes, is a multiple of 16 for an even KV)
+      if (KV % 2 != 0) return kBadShape;
+      ok = ok && encode3(&sm, scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2 * KV, a.hist, B,
+                         2 * KV * 4, 2LL * KV * 4 * S, 2 * KV, Ge::kBK,
+                         CU_TENSOR_MAP_SWIZZLE_NONE);
+    }
     a.raw_stage = Ge::raw_stage(KV);
     a.raw_stages = Ge::smem(KV, kRawStages) <= kSmemLimit ? kRawStages : 2;
   } else {
@@ -763,12 +822,13 @@ int launch(const void* k, const void* v, const void* scale, Args a, int J, int B
   static int sized = 0;  // raised at the first (eager) call of a size, before any capture
   if (smem > sized) {
     const cudaError_t err = cudaFuncSetAttribute(
-        prefill_chunk_attn<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        prefill_chunk_attn<T, HD, kFlatScales>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     sized = smem;
   }
   const dim3 grid(KV, J, (a.C * a.G + kRows - 1) / kRows);
-  prefill_chunk_attn<T, HD><<<grid, kThreads, smem, stream>>>(km, vm, sm, a);
+  prefill_chunk_attn<T, HD, kFlatScales><<<grid, kThreads, smem, stream>>>(km, vm, sm, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -776,9 +836,8 @@ int launch(const void* k, const void* v, const void* scale, Args a, int J, int B
 }  // namespace mp
 
 // Status 0, -1 for a head_dim with no instantiation (64 and 128 exist), -2
-// for a shape out of range, -3 when a tensor map cannot be encoded, -4 for
-// an int8 cache with an odd number of kv heads, else the launch's
-// cudaGetLastError().
+// for a shape out of range, -3 when a tensor map cannot be encoded, else the
+// launch's cudaGetLastError().
 extern "C" int mp_prefill_chunk_attention(
     const void* q,        // (J, C, H, HD) bf16
     const void* k,        // one layer: int8 (B, S, KV*HD) or bf16 (B, KV, S, HD)
@@ -804,14 +863,18 @@ extern "C" int mp_prefill_chunk_attention(
   a.hist = hist;
   a.raw_stage = a.raw_stages = 0;
   a.sm_scale = sm_scale;
+  a.S = S;
+  a.scale_lead = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (HD == 128) {
-    return quant ? mp::launch<int8_t, 128>(k, v, scale, a, J, B, S, st)
-                 : mp::launch<__nv_bfloat16, 128>(k, v, scale, a, J, B, S, st);
+    if (!quant) return mp::launch<__nv_bfloat16, 128, false>(k, v, scale, a, J, B, S, st);
+    return KV % 2 == 0 ? mp::launch<int8_t, 128, false>(k, v, scale, a, J, B, S, st)
+                       : mp::launch<int8_t, 128, true>(k, v, scale, a, J, B, S, st);
   }
   if (HD == 64) {
-    return quant ? mp::launch<int8_t, 64>(k, v, scale, a, J, B, S, st)
-                 : mp::launch<__nv_bfloat16, 64>(k, v, scale, a, J, B, S, st);
+    if (!quant) return mp::launch<__nv_bfloat16, 64, false>(k, v, scale, a, J, B, S, st);
+    return KV % 2 == 0 ? mp::launch<int8_t, 64, false>(k, v, scale, a, J, B, S, st)
+                       : mp::launch<int8_t, 64, true>(k, v, scale, a, J, B, S, st);
   }
   return mp::kBadHeadDim;
 }
@@ -824,8 +887,6 @@ extern "C" const char* mp_error_string(int status) {
       return "shape out of range (J, C, heads, hist <= S, shared memory)";
     case mp::kEncodeFailed:
       return "cuTensorMapEncodeTiled failed for the cache's tensor maps";
-    case mp::kOddKv:
-      return "an int8 cache needs an even number of kv heads (TMA scale rows)";
     default:
       break;
   }

@@ -27,9 +27,10 @@ k scales on the scores, v scales on the probabilities before they round to
 the dot dtype for P.V, fp32 sums.
 
 The kernel (Hopper: wgmma on TMA-fed tiles, int8 tiles converted by the
-copying warpgroup, heaviest row tiles first; its source says how) needs
-an even number of kv heads with an int8 cache: a scale row is one TMA box
-row, whose stride must be a multiple of 16 bytes.
+copying warpgroup, heaviest row tiles first; its source says how) takes
+head dims 64 and 128 and any number of kv heads, one included (a
+tensor-parallel rank's share of Orpheus-3B's eight at tp = 8): a tile's
+int8 scale rows are one contiguous run of the lane, copied whole.
 
 The wrapper sends CPU tensors to the plain twin, that function applied
 job by job, and launches the kernel for CUDA tensors, or raises: nothing
@@ -183,7 +184,6 @@ def prefill_chunk_attention(
     _require(k.shape == v.shape and k.is_contiguous() and v.is_contiguous(),
              "k and v must be contiguous and of one shape")
     if quant:
-        _require(KV % 2 == 0, "an int8 cache needs an even number of kv heads (TMA scale rows)")
         sc = layer["scale"]
         _require(sc.dtype == torch.float32 and sc.shape == (B, S, 2 * KV) and sc.is_contiguous(),
                  "scale must be contiguous fp32 (B, S, 2KV)")

@@ -3,6 +3,7 @@
     python -m project_morpheus_tpu_torch.tools.kernel_ablation [VARIANT ...]
     python -m project_morpheus_tpu_torch.tools.kernel_ablation gemv [VARIANT ...]
     python -m project_morpheus_tpu_torch.tools.kernel_ablation prefill [VARIANT ...]
+    python -m project_morpheus_tpu_torch.tools.kernel_ablation w8a8 [VARIANT ...]
 
 Decode attention:
 
@@ -61,6 +62,28 @@ in turns:
   (the copies, and for int8 the conversion, with nothing to feed);
 - ``keys128``: 128-key tiles for a bf16 cache (3 stages) instead of 64
   (an int8 cache's tiles are 64 keys either way: its two rings must fit).
+
+The w8a8 GEMM (``w8a8``): ``w8a8_gemm.cu`` with one part skipped, or the
+source as it is under another plan (``ops/w8a8_gemm.py``'s ``PLAN``), timed
+at the four Orpheus-3B weights (``time_kernels.W8A8_PAIRS``) at
+``W8A8_ABLATION_ROWS`` rows with ``time_kernels.graph_ms`` (28 layers
+cycled): the GEMM alone, and the quantize + GEMM pair as a projection runs
+it, and the quantize alone; twice in turns:
+
+- ``kernel``: the source and the plan as they are;
+- ``plan_128``: the plan of more than 128 rows at every row count (128 x
+  128 or 128 x 256 tiles, no split, no early weight tiles);
+- ``tile128``: the plan with 128-row tiles;
+- ``no_prefetch``, ``prefetch_all``: no weight tiles, or the whole ring,
+  requested before the kernel ahead ends (the plan: two on short calls);
+- ``no_dependent``: the GEMM launched as an ordinary kernel;
+- ``bn96_split1`` ... ``bn128_split4``: short calls with the tile width
+  and the split of K set (the plan's where its tile or the card's cluster
+  occupancy does not allow them);
+- ``loads_only``: the tiles copied and handed back, no product, no
+  epilogue;
+- ``no_reduce``: a split's blocks stop after their own partial sums;
+- ``empty``: every block returns at once, on the same grid and launch.
 
 Prints one line per variant and round; needs a CUDA card.
 """
@@ -407,10 +430,136 @@ def main(names) -> None:
         build._libs.clear()
 
 
+# ------------------------------------------------------------ w8a8 GEMM
+
+W8A8_SRC = "w8a8_gemm.cu"
+W8A8_ABLATION_ROWS = (32, 128, 1024)
+_NEVER, _ALWAYS = "M > (1 << 30)", "M < (1 << 30)"
+_SPLIT_SYNCS = "if (splits > 1) {\n      cluster_sync();\n      cluster_sync();\n    }\n"
+_WGMMA = ("    wgmma_fence();\n#pragma unroll\n    for (int ks = 0; ks < kBK / 32; ++ks) {\n"
+          "      wgmma_s8<BN>(acc, sw128_desc(a + 32 * ks, 16, 1024), sw128_desc(b + 32 * ks, 16, "
+          "1024),\n                   j > 0 || ks > 0);\n    }\n    wgmma_commit();\n"
+          "    wgmma_wait<1>();  // tile j - 1's products are done: its stage goes back\n")
+W8A8_EDITS = {
+    "empty": [("  const int mine = (rank + 1) * k_tiles / splits - kt0;  // this block's K tiles\n",
+               "  const int mine = (rank + 1) * k_tiles / splits - kt0;  // this block's K tiles\n"
+               f"  if ({_ALWAYS}) return;\n")],
+    "loads_only": [(_WGMMA, f"    if ({_NEVER}) {{\n{_WGMMA}    }}\n"),
+                   ("  wgmma_wait<0>();\n  keep(acc);\n",
+                    f"  if ({_ALWAYS}) {{\n    {_SPLIT_SYNCS}    return;\n  }}\n"
+                    "  wgmma_wait<0>();\n  keep(acc);\n")],
+    "no_reduce": [("  const int per = BN / 8 / splits;\n  cluster_sync();\n",
+                   f"  if ({_ALWAYS}) {{\n    cluster_sync();\n    cluster_sync();\n    return;\n"
+                   "  }\n  const int per = BN / 8 / splits;\n  cluster_sync();\n")],
+}
+
+
+def _plan_variants(wg):
+    """name -> planner (M, N, K, device) -> plan, from the wrapper's own."""
+    card = wg.card_plan
+
+    def sms(dev):
+        return wg._sm_count(dev)
+
+    def split(cs, bn):
+        def plan(M, N, K, dev):
+            bm, plan_bn, plan_cs, pre = card(M, N, K, dev)
+            if M > wg.SHORT_ROWS or (bn // 8) % cs or cs > -(-K // wg.TILE_K) or (
+                    cs > 1 and -(-N // bn) > wg.max_clusters(dev, bm, bn, cs)):
+                return bm, plan_bn, plan_cs, pre
+            return bm, bn, cs, pre
+        return plan
+
+    return {
+        "kernel": card,
+        "plan_128": lambda M, N, K, dev: (128, wg.block_n(M, N, sms(dev)), 1, 0),
+        "tile128": lambda M, N, K, dev: (128, *card(M, N, K, dev)[1:]),
+        "no_prefetch": lambda M, N, K, dev: (*card(M, N, K, dev)[:3], 0),
+        "prefetch_all": lambda M, N, K, dev: (*card(M, N, K, dev)[:3], wg.PREFETCH_ALL),
+        "no_dependent": card,
+        **{f"bn{bn}_split{cs}": split(cs, bn) for bn in wg.SHORT_TILE_N for cs in (1, 2, 4)},
+    }
+
+
+def w8a8_main(argv) -> None:
+    import subprocess
+
+    import torch
+
+    from project_morpheus_tpu_torch.ops import build, w8a8_gemm as wg
+    from project_morpheus_tpu_torch.tools import time_kernels as tk
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ablation: needs a CUDA card")
+    plans = _plan_variants(wg)
+    names = argv or [*plans, *W8A8_EDITS]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(21)
+    weights = {}
+    for name in ("wqkv", "wo", "wgu", "wd"):
+        K, N = tk.W8A8_PAIRS[name]
+        qt = torch.randint(-127, 128, (tk.L, N, K), generator=g, device=dev, dtype=torch.int8)
+        scale = torch.rand(tk.L, N, generator=g, device=dev) * 0.02 + 1e-3
+        hs = {M: torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+              for M in W8A8_ABLATION_ROWS}
+        weights[name] = (K, N, qt, scale, hs)
+    own_csrc, own_build, own_sources = build.CSRC, build.BUILD_DIR, build.SOURCES
+    own_plan, own_dep = wg.PLAN, wg.DEPENDENT_LAUNCH
+    try:
+        for rnd in range(2):
+            for name in names:
+                var_src = own_build / "ablation" / f"w8a8_{name}" / "csrc"
+                if var_src.exists():
+                    shutil.rmtree(var_src)
+                shutil.copytree(own_csrc, var_src)
+                cu = var_src / W8A8_SRC
+                src = cu.read_text()
+                for old, new in W8A8_EDITS.get(name, []):
+                    if src.count(old) != 1:
+                        raise ValueError(f"ablation anchor found {src.count(old)} times in "
+                                         f"{W8A8_SRC}: {old[:60]!r}")
+                    src = src.replace(old, new)
+                cu.write_text(src)
+                build.CSRC, build.BUILD_DIR, build.SOURCES = var_src, var_src.parent, (W8A8_SRC,)
+                build._libs.clear()
+                wg._CLUSTERS.clear()
+                build.build_all()
+                wg.PLAN = plans.get(name, own_plan)
+                wg.DEPENDENT_LAUNCH = name != "no_dependent"
+                row = []
+                for M in W8A8_ABLATION_ROWS:
+                    gemm_sum = pair_sum = quant_sum = 0.0
+                    for wname, (K, N, qt, scale, hs) in weights.items():
+                        h = hs[M]
+                        h8, hsc = wg.quantize_rows(h)
+                        gemm = tk.graph_ms(lambda i: wg.w8a8_gemm(h8, hsc, qt[i % tk.L],
+                                                                  scale[i % tk.L], torch.bfloat16))
+                        pair = tk.w8a8_pair_ms(torch, wg, h, qt, scale, wg.DEPENDENT_LAUNCH)
+                        quant = tk.graph_ms(lambda i: wg.quantize_rows(h))
+                        gemm_sum += gemm
+                        pair_sum += pair
+                        quant_sum += quant
+                        row.append(f"{wname} M={M} {wg.PLAN(M, N, K, dev)} {gemm * 1e3:.2f} / "
+                                   f"{pair * 1e3:.2f} / {quant * 1e3:.2f} us")
+                    row.append(f"SUM M={M} {gemm_sum * 1e3:.2f} / {pair_sum * 1e3:.2f} / "
+                               f"{quant_sum * 1e3:.2f} us")
+                print(f"round {rnd} w8a8 {name} [gemm / quantize + gemm / quantize]: "
+                      + "; ".join(row), flush=True)
+    finally:
+        build.CSRC, build.BUILD_DIR, build.SOURCES = own_csrc, own_build, own_sources
+        build._libs.clear()
+        wg._CLUSTERS.clear()
+        wg.PLAN, wg.DEPENDENT_LAUNCH = own_plan, own_dep
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["gemv"]:
         gemv_main(sys.argv[2:])
     elif sys.argv[1:2] == ["prefill"]:
         prefill_main(sys.argv[2:])
+    elif sys.argv[1:2] == ["w8a8"]:
+        w8a8_main(sys.argv[2:])
     else:
         main(sys.argv[1:] or list(VARIANTS))

@@ -1,6 +1,7 @@
 """Device time of the kernels, apart from their wrappers' host time.
 
     python -m project_morpheus_tpu_torch.tools.time_kernels [prefill | w8a8]
+    python -m project_morpheus_tpu_torch.tools.time_kernels w8a8-ab TAG [ROWS]
 
 At the Orpheus-3B serving shapes (28 layers, 8 slots x 8192, KV=8, HD=128,
 G=3) and two sets of live lengths (``SHAPES``), times each kernel three ways:
@@ -32,19 +33,29 @@ phase 2 times with these functions, the int8 GEMV with ``chained_ms`` (a
 dependent add between calls) at ``gemv_shapes``.
 
 With the argument ``w8a8`` it checks and times the chunk prefill's w8a8
-kernels (``ops/w8a8_gemm.py``) at ``W8A8_PAIRS`` (the Orpheus-3B weights
-and their tp = 2 halves) and ``W8A8_ROWS`` (``w8a8_timings``): each equal
-to its plain version bit for bit, eager and replayed from a CUDA graph,
-also at the row tails ``W8A8_TAILS``; then, at each timed row count, the
-GEMM's and the quantize's device ms a call from a graph of 28 calls (the
-28 layers' weights cycled, so each call finds its weight cold in L2; the
-activations stay warm, as the quantize's output and the norm's are in a
-round) and host us a call, beside the bound, the plain versions' ms and
-three library yardsticks for the GEMM: ``torch._int_mm`` on the (K, N)
-weight (the call this kernel replaced), ``torch._int_mm`` on the K-major
-copy, and ``torch.matmul`` in bf16 on a weight dequantized ahead of time.
-The port never calls them.  Prints the records as text and one JSON line.
-It needs a CUDA card and fails without one.
+kernels (``ops/w8a8_gemm.py``) at ``W8A8_PAIRS`` (the Orpheus-3B weights,
+their tp = 2 halves and a tp = 8 rank's, and a 1B tp = 8 rank's ``wk``)
+and ``W8A8_ROWS`` (``w8a8_timings``): each equal to its plain version bit
+for bit, eager and replayed from a CUDA graph, also at the row tails
+``W8A8_TAILS`` and at the N and K tails ``W8A8_SHAPE_TAILS`` (checked
+only); then, at each timed row count, the GEMM's and the quantize's device
+ms a call from a graph of 28 calls (the 28 layers' weights cycled, so each
+call finds its weight cold in L2; the activations stay warm, as the
+quantize's output and the norm's are in a round) and host us a call,
+beside the bound, the plain versions' ms and three library yardsticks for
+the GEMM: ``torch._int_mm`` on the (K, N) weight (the call this kernel
+replaced), ``torch._int_mm`` on the K-major copy, and ``torch.matmul`` in
+bf16 on a weight dequantized ahead of time; and the quantize + GEMM pair
+as the projection runs it (a graph of 28 pairs), with the GEMM launched as
+a programmatic dependent of the quantize and without.  The port never
+calls the yardsticks.  Prints the records as text and one JSON line.  It
+needs a CUDA card and fails without one.
+
+With ``w8a8-ab TAG [ROWS]`` (rows comma-separated, default ``W8A8_ROWS``)
+it prints ``TAG`` and one JSON object of the GEMM's and the quantize's
+device ms a call (``w8a8_ab_times``) at the four 3B weights: copied into a
+``git archive`` of a parent commit and run there in turns with this tree
+(parent, change, change, parent), it compares the two in one call.
 """
 from __future__ import annotations
 
@@ -311,14 +322,21 @@ def prefill_timings(torch, dev, check) -> dict:
     return out
 
 
-# the chunk prefill's w8a8 weights (K, N): Orpheus-3B's fused projections
-# and the halves a rank of tp = 2 holds; the rows a call takes (a round's
-# J x chunk), timed, and the row tails checked besides
+# the chunk prefill's w8a8 weights (K, N): Orpheus-3B's fused projections,
+# the halves a rank of tp = 2 holds, the unfused shares of a tp = 8 rank
+# (tensor parallelism never fuses; wu is wg's shape) and Orpheus-1B's wk at
+# tp = 8; the rows a call takes (a round's J x chunk), timed; the row tails
+# (the 64-row tile's edge among them) and the N and K tails checked besides
 W8A8_PAIRS = {"wqkv": (3072, 5120), "wo": (3072, 3072), "wgu": (3072, 16384), "wd": (8192, 3072),
               "wqkv/2": (3072, 2560), "wo/2": (1536, 3072), "wgu/2": (3072, 8192),
-              "wd/2": (4096, 3072)}
+              "wd/2": (4096, 3072), "wq/8": (3072, 384), "wk/8": (3072, 128),
+              "wo/8": (384, 3072), "wg/8": (3072, 1024), "wd/8": (1024, 3072),
+              "1b wk/8": (2048, 64)}
 W8A8_ROWS = (32, 128, 512, 1024, 2048, 4096)
-W8A8_TAILS = (1, 33, 1000)
+W8A8_TAILS = (1, 33, 64, 65, 100, 1000)
+W8A8_SHAPE_TAILS = {"N tail": (2048, 200), "K tail": (1040, 128), "K and N tails": (1040, 200),
+                    "N = 1": (1040, 1)}
+W8A8_SHORT_ROWS = (32, 128)  # the short prompts' rounds, recorded weight by weight
 
 
 def w8a8_work(M: int, K: int, N: int):
@@ -335,16 +353,34 @@ def quantize_work(M: int, K: int):
     return 3 * M * K + 4 * M, 5.0 * M * K
 
 
-def w8a8_timings(torch, dev, rows=W8A8_ROWS, pairs=W8A8_PAIRS, tails=W8A8_TAILS) -> dict:
-    """The w8a8 kernels at ``pairs`` x (``tails`` + ``rows``): checked bit
-    for bit against their plain versions, eagerly (layers 0 and ``L - 1``)
-    and replayed from a captured graph; at ``rows``, timed (module
-    docstring).  Raises on a difference.  Returns {"pair M=rows": record}."""
+def w8a8_pair_ms(torch, wg, h, qt, scale, dependent: bool) -> float:
+    """Device ms of one quantize + GEMM pair (a graph of 28, the weights
+    cycled), the GEMM launched as a programmatic dependent or not."""
+    keep = wg.DEPENDENT_LAUNCH
+    wg.DEPENDENT_LAUNCH = dependent
+    try:
+        def pair(i):
+            h8, hsc = wg.quantize_rows(h)
+            return wg.w8a8_gemm(h8, hsc, qt[i % L], scale[i % L], torch.bfloat16)
+
+        return graph_ms(pair)
+    finally:
+        wg.DEPENDENT_LAUNCH = keep
+
+
+def w8a8_timings(torch, dev, rows=W8A8_ROWS, pairs=W8A8_PAIRS, tails=W8A8_TAILS,
+                 shape_tails=W8A8_SHAPE_TAILS) -> dict:
+    """The w8a8 kernels at ``pairs`` x (``tails`` + ``rows``) and
+    ``shape_tails`` x (``tails`` + ``rows``): checked bit for bit against
+    their plain versions, eagerly (layers 0 and ``L - 1``) and replayed from
+    a captured graph; ``pairs`` at ``rows``, timed (module docstring).
+    Raises on a difference.  Returns {"pair M=rows": record}."""
     from project_morpheus_tpu_torch.ops import w8a8_gemm as wg
 
     g = torch.Generator(device=dev).manual_seed(11)
     out = {}
-    for name, (K, N) in pairs.items():
+    for name, (K, N) in {**pairs, **shape_tails}.items():
+        timed = name in pairs
         q = torch.randint(-127, 128, (L, K, N), generator=g, device=dev, dtype=torch.int8)
         qt = q.transpose(1, 2).contiguous()
         scale = torch.rand(L, N, generator=g, device=dev) * 0.02 + 1e-3
@@ -382,13 +418,12 @@ def w8a8_timings(torch, dev, rows=W8A8_ROWS, pairs=W8A8_PAIRS, tails=W8A8_TAILS)
             if not (torch.equal(g8, h8) and torch.equal(gy, eager)):
                 raise AssertionError(f"{what}: a replayed graph differs from the eager calls")
             del graph
-            if M not in rows:
+            if M not in rows or not timed:
                 continue
             gemm = lambda i: wg.w8a8_gemm(h8, hsc, qt[i % L], scale[i % L], torch.bfloat16)  # noqa: E731
             quant = lambda i: wg.quantize_rows(h)  # noqa: E731
             out[f"{name} M={M}"] = dict(
-                K=K, N=N, M=M, tile_n=wg.block_n(M, N, torch.cuda.get_device_properties(
-                    dev).multi_processor_count),
+                K=K, N=N, M=M, plan=wg.PLAN(M, N, K, dev),
                 device_ms=graph_ms(gemm), host_us=host_us(gemm),
                 plain_ms=events_ms(lambda i: wg.w8a8_gemm_plain(h8, hsc, qt[i % L], scale[i % L],
                                                                 torch.bfloat16), 3),
@@ -396,9 +431,33 @@ def w8a8_timings(torch, dev, rows=W8A8_ROWS, pairs=W8A8_PAIRS, tails=W8A8_TAILS)
                 library_kmajor_ms=graph_ms(lambda i: torch._int_mm(h8, qt[i % L].t())),
                 library_bf16_ms=graph_ms(lambda i: h @ wb[i % L]),
                 quantize_ms=graph_ms(quant), quantize_host_us=host_us(quant),
-                quantize_plain_ms=events_ms(lambda i: wg.quantize_rows_plain(h), 3))
+                quantize_plain_ms=events_ms(lambda i: wg.quantize_rows_plain(h), 3),
+                pair_ms=w8a8_pair_ms(torch, wg, h, qt, scale, True),
+                pair_nodep_ms=w8a8_pair_ms(torch, wg, h, qt, scale, False))
         del q, qt, scale, wb
         torch.cuda.empty_cache()
+    return out
+
+
+def w8a8_ab_times(torch, dev, rows=W8A8_ROWS) -> dict:
+    """{"<weight> M=<rows>": GEMM device ms, "quantize <weight> M=<rows>":
+    quantize device ms} at Orpheus-3B's four weights, each from a graph of
+    28 calls (the layers' weights cycled), through the package's own
+    ``quantize_rows`` and ``w8a8_gemm`` (an API older commits share)."""
+    from project_morpheus_tpu_torch.ops import w8a8_gemm as wg
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for name in ("wqkv", "wo", "wgu", "wd"):
+        K, N = W8A8_PAIRS[name]
+        qt = torch.randint(-127, 128, (L, N, K), generator=g, device=dev, dtype=torch.int8)
+        scale = torch.rand(L, N, generator=g, device=dev) * 0.02 + 1e-3
+        for M in rows:
+            h = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+            h8, hsc = wg.quantize_rows(h)
+            out[f"{name} M={M}"] = graph_ms(lambda i: wg.w8a8_gemm(h8, hsc, qt[i % L],
+                                                                   scale[i % L], torch.bfloat16))
+            out[f"quantize {name} M={M}"] = graph_ms(lambda i: wg.quantize_rows(h))
     return out
 
 
@@ -413,18 +472,23 @@ def main() -> None:
         raise SystemExit("time_kernels: needs a CUDA card")
     build.build_all()
     dev = torch.device("cuda")
+    if sys.argv[1:2] == ["w8a8-ab"]:
+        rows = [int(r) for r in sys.argv[3].split(",")] if len(sys.argv) > 3 else W8A8_ROWS
+        print(sys.argv[2], json.dumps(w8a8_ab_times(torch, dev, rows)), flush=True)
+        return
     if sys.argv[1:] == ["w8a8"]:
         shapes = w8a8_timings(torch, dev)
         for name, r in shapes.items():
             b_bytes, b_ops = w8a8_work(r["M"], r["K"], r["N"])
             bound = max(b_bytes / 3.35e12, b_ops / 1979e12) * 1e3
             qb = quantize_work(r["M"], r["K"])[0] / 3.35e12 * 1e3
-            print(f"{name} (tile {r['tile_n']}): gemm {r['device_ms']:.4f} ms, host "
+            print(f"{name} (plan {r['plan']}): gemm {r['device_ms']:.4f} ms, host "
                   f"{r['host_us']:.1f} us, bound {bound:.4f} ms ({100 * bound / r['device_ms']:.1f}"
                   f"%), plain {r['plain_ms']:.3f}, _int_mm (K, N) {r['library_ms']:.4f}, _int_mm "
                   f"K-major {r['library_kmajor_ms']:.4f}, bf16 matmul {r['library_bf16_ms']:.4f}; "
                   f"quantize {r['quantize_ms'] * 1e3:.2f} us (bound {qb * 1e3:.2f} us), host "
-                  f"{r['quantize_host_us']:.1f} us, plain {r['quantize_plain_ms']:.3f} ms",
+                  f"{r['quantize_host_us']:.1f} us, plain {r['quantize_plain_ms']:.3f} ms; pair "
+                  f"{r['pair_ms'] * 1e3:.2f} us dependent, {r['pair_nodep_ms'] * 1e3:.2f} us not",
                   flush=True)
         print(json.dumps({"card": torch.cuda.get_device_name(0), "w8a8": shapes}), flush=True)
         return

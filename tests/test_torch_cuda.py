@@ -351,6 +351,35 @@ def test_training_attention_card_matches_twin(cuda):
         assert (a.float() - b.float()).abs().max() <= 2e-2 * b.float().abs().max()
 
 
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("KV,G,HD", [(1, 3, 128), (1, 4, 64), (2, 3, 128), (4, 3, 128),
+                                     (8, 3, 128)])
+@pytest.mark.parametrize("quant", [True, False])
+def test_prefill_chunk_attention_any_kv_heads(cuda, KV, G, HD, quant):
+    """The chunk-prefill kernel at a tensor-parallel rank's kv heads: one
+    (Orpheus-3B and 1B at tp = 8), two, four and eight; the int8 scale rows
+    of a lane, a tile's run of 2KV floats a position, copied whole.  One
+    job, and two whose chunks end at the bucket, garbage past each
+    frontier; a cache of 5 slots x 1,023 positions, so at KV = 1 the scale
+    array's second layer (the one used) starts 8 bytes past a 16-byte
+    boundary."""
+    g = torch.Generator(device=cuda).manual_seed(KV * 10 + G)
+    B, S, hist = 5, 1023, 512
+    for slots, offsets, C in (([3], [100], 96), ([4, 0], [hist - 64, hist - 40], 40)):
+        full = {n: torch.stack([t, t]) for n, t in
+                _prefill_layer(g, cuda, quant, B, S, KV, HD).items()}
+        layer = {n: t[1] for n, t in full.items()}
+        for b, off in zip(slots, offsets):
+            _prefill_garbage(layer, b, off + C)
+        q = torch.randn(len(slots), C, KV * G, HD, generator=g, device=cuda).to(torch.bfloat16)
+        st = torch.tensor(slots, dtype=torch.int32, device=cuda)
+        ot = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+        got = pa.prefill_chunk_attention(q, layer, st, ot, hist)
+        want = pa.prefill_chunk_attention_plain(q, layer, st, ot, hist).float()
+        torch.cuda.synchronize()
+        _assert_prefill_close(got, want.view(len(slots), C, KV * G * HD))
+
+
 # the Orpheus-3B w8a8 weights (K, N) and two tp = 2 halves
 W8A8_SHAPES = [(3072, 5120), (3072, 3072), (3072, 16384), (8192, 3072), (1536, 3072),
                (4096, 3072)]
@@ -393,6 +422,56 @@ def test_w8a8_kernels_equal_plain(cuda, M, K, N):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("M", [1, 32, 64, 65, 128])
+@pytest.mark.parametrize("K,N", [(2048, 64), (2048, 200), (1040, 128), (1040, 200), (1040, 1),
+                                 (3072, 5120), (3072, 3072), (8192, 3072), (384, 3072)])
+def test_w8a8_short_plans_and_tails_equal_plain(cuda, M, K, N):
+    """The short rounds' plans (64-row tiles up to 64 rows, K split over a
+    cluster, 96- and 128-wide tiles) and the N and K tails (N not a
+    multiple of 128, odd N, K a multiple of 16 only) equal the plain
+    versions bit for bit, bf16 and fp32 out, with and without the
+    dependent launch."""
+    g = torch.Generator(device=cuda).manual_seed(M * 7 + K + N)
+    h, qt, scale = _w8a8_inputs(g, cuda, M, K, N)
+    h8, hsc = wg.quantize_rows(h)
+    want8, wantsc = wg.quantize_rows_plain(h)
+    assert torch.equal(h8, want8) and torch.equal(hsc, wantsc)
+    bm, bn, splits, _ = wg.PLAN(M, N, K, cuda)
+    assert bm == (64 if M <= 64 else 128)
+    keep = wg.DEPENDENT_LAUNCH
+    try:
+        for dependent in (True, False):
+            wg.DEPENDENT_LAUNCH = dependent
+            for dt in (torch.bfloat16, torch.float32):
+                got = wg.w8a8_gemm(h8, hsc, qt, scale, dt)
+                want = wg.w8a8_gemm_plain(h8, hsc, qt, scale, dt)
+                torch.cuda.synchronize()
+                assert got.shape == (M, N)
+                assert torch.equal(got, want), (bm, bn, splits, dependent, dt)
+    finally:
+        wg.DEPENDENT_LAUNCH = keep
+
+
+@pytest.mark.requires_cuda
+def test_w8a8_short_plans_fit_the_card(cuda):
+    """At the 3B weights' short rounds (and a tp = 8 rank's) the card's
+    plan is one wave with every cluster resident at once, and K is split at
+    the longest weight (wd, K = 8192)."""
+    from project_morpheus_tpu_torch.tools import time_kernels as tk
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for name in ("wqkv", "wo", "wgu", "wd", "wq/8", "1b wk/8"):
+        K, N = tk.W8A8_PAIRS[name]
+        for M in (32, 128):
+            bm, bn, splits, _ = wg.PLAN(M, N, K, cuda)
+            tiles = -(-N // bn)
+            assert splits == 1 or (tiles * splits <= sms
+                                   and tiles <= wg.max_clusters(cuda, bm, bn, splits))
+            if name == "wd":
+                assert splits > 1
+
+
+@pytest.mark.requires_cuda
 def test_w8a8_quantize_amax_hook(cuda):
     """With a hook the quantize launches twice (the rows' maxima, then the
     rows from the hook's maxima) and equals the plain version given it; an
@@ -410,7 +489,8 @@ def test_w8a8_quantize_amax_hook(cuda):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("M,K,N", [(1000, 3072, 16384), (33, 8192, 3072)])
+@pytest.mark.parametrize("M,K,N", [(1000, 3072, 16384), (33, 8192, 3072), (32, 3072, 5120),
+                                   (100, 2048, 64)])
 def test_w8a8_same_bits_eager_and_replayed(cuda, M, K, N):
     """The quantize and the GEMM replayed from a captured CUDA graph give
     the eager call's bits."""

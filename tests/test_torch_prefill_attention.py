@@ -6,14 +6,19 @@ batched chunk prefill with device-tensor indices against the JAX package.
   ``_chunk_streaming_attn`` vmapped over the jobs, as JAX's batched prefill
   calls it: int8 position-major and bf16 head-major histories, one job and
   three on non-adjacent slots at different offsets, garbage written past
-  each slot's frontier, history buckets of 64 and 256.  fp32 queries, so
-  the two differ only in summation order: 1e-5 (abs and rel).
+  each slot's frontier, history buckets of 64 and 256; and an int8
+  history of one kv head at the head shapes of a tensor-parallel rank of
+  Orpheus-3B and 1B at tp = 8 (H = 3, HD = 128; H = 4, HD = 64).  fp32
+  queries, so the two differ only in summation order: 1e-5 (abs and rel).
 - ``llama_prefill_chunk_batch`` with offsets, slots and lengths as int32
   tensors against JAX's ``llama_prefill_chunk_batch``: 1e-3 on the logits,
   1e-2 with both an int8 cache and int8 activations (the tolerances of
   ``test_torch_llama.py``, for the same reasons), and bit for bit against
-  the same call given Python lists.
+  the same call given Python lists; also with a rank's one kv head (an
+  int8 cache and w8a8 projections, 1e-2).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,7 +40,7 @@ TWIN_TOL = dict(rtol=1e-5, atol=1e-5)
 B, S, KV, G, HD, C = 5, 256, 2, 3, 16, 16
 
 
-def _history(rng, quant: bool, slots, offsets):
+def _history(rng, quant: bool, slots, offsets, KV=KV, HD=HD):
     """One layer of a B-slot cache: random values before each job's
     frontier (offset + C), large finite garbage past it."""
     if quant:
@@ -54,7 +59,7 @@ def _history(rng, quant: bool, slots, offsets):
             "v": torch.tensor(v).bfloat16().float().numpy()}
 
 
-def _jax_attention(q, hist, slots, offsets, hist_bucket):
+def _jax_attention(q, hist, slots, offsets, hist_bucket, KV=KV, G=G, HD=HD):
     """JAX's ``_chunk_streaming_attn`` vmapped over the jobs, on each job's
     history views cut as JAX's batched prefill cuts them."""
     quant = "scale" in hist
@@ -109,6 +114,24 @@ def test_twin_matches_jax_chunk_streaming_attn(quant, slots, hist_bucket):
     np.testing.assert_allclose(got.numpy(), want, **TWIN_TOL)
 
 
+@pytest.mark.parametrize("G,HD", [(3, 128), (4, 64)])
+def test_twin_matches_jax_at_one_kv_head(G, HD):
+    """An int8 history of one kv head (a tp = 8 rank's share of Orpheus-3B,
+    H = 3, HD = 128, and of 1B, H = 4, HD = 64): two jobs at their own
+    offsets, garbage past each frontier."""
+    rng = np.random.default_rng(G * HD)
+    slots, offsets, hist_bucket = [3, 0], [0, 256 - C - 5], 256
+    hist = _history(rng, True, slots, offsets, KV=1, HD=HD)
+    q = rng.normal(size=(len(slots), C, G, HD)).astype(np.float32)
+    layer = {name: torch.tensor(a) for name, a in hist.items()}
+    got = prefill_chunk_attention(
+        torch.tensor(q), layer, torch.tensor(slots, dtype=torch.int32),
+        torch.tensor(offsets, dtype=torch.int32), hist_bucket)
+    assert got.shape == (len(slots), C, G * HD)
+    want = _jax_attention(q, hist, slots, offsets, hist_bucket, KV=1, G=G, HD=HD)
+    np.testing.assert_allclose(got.numpy(), want, **TWIN_TOL)
+
+
 _WEIGHTS = {}
 
 
@@ -158,3 +181,31 @@ def test_prefill_batch_with_device_indices_matches_jax(quant, w8a8):
         assert torch.equal(llog, tlog)
     for name in tc:
         assert torch.equal(tc[name], tc_list[name]), name
+
+
+def test_prefill_batch_at_one_kv_head_matches_jax():
+    """A rank's shapes at tp = 8 (one kv head, three query heads) with an
+    int8 cache and w8a8 projections: two rounds of J = 2 chunks, the
+    second padded, against JAX's batched prefill (1e-2, as above)."""
+    fields = dict(num_heads=3, num_kv_heads=1, head_dim=16)
+    cfg = dataclasses.replace(LlamaConfig.tiny_vocab(), **fields)
+    jcfg = dataclasses.replace(JaxLlamaConfig.tiny_vocab(), **fields)
+    jp = jax_fuse(jax_quant(jax_init(jcfg, jax.random.key(5), dtype=jnp.float32)))
+    tp = params_from_jax_numpy(jax.tree.map(np.asarray, jp))
+    rng = np.random.default_rng(23)
+    slots, J, clen = [2, 0], 2, 16
+    toks = rng.integers(3, 900, (J, 32)).astype(np.int32)
+    jc = jl.init_kv_cache(jcfg, 3, 64, jnp.int8)
+    tc = tl.init_kv_cache(cfg, 3, 64, torch.int8)
+    i32 = dict(dtype=torch.int32)
+    for offs, lens in (([0, 0], [16, 16]), ([16, 16], [16, 7])):
+        chunk = np.zeros((J, clen), np.int32)
+        for j, (off, n) in enumerate(zip(offs, lens)):
+            chunk[j, :n] = toks[j, off:off + n]
+        jlog, jc = _jax_prefill_batch(
+            jp, jnp.asarray(chunk), jcfg, jc, jnp.asarray(offs), jnp.asarray(slots),
+            jnp.asarray(lens), hist_bucket=64, w8a8=True)
+        tlog = tl.llama_prefill_chunk_batch(
+            tp, torch.tensor(chunk), cfg, tc, torch.tensor(offs, **i32),
+            torch.tensor(slots, **i32), torch.tensor(lens, **i32), hist_bucket=64, w8a8=True)
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), rtol=1e-2, atol=1e-2)

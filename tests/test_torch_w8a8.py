@@ -91,6 +91,121 @@ def test_matmul_w8a8_equals_jax(M, K, N):
         assert torch.equal(direct, got)
 
 
+@pytest.mark.parametrize("M", [5, 64])
+@pytest.mark.parametrize("K,N", [(2048, 64), (2048, 200), (1040, 64), (1040, 200)])
+def test_matmul_w8a8_tails_equal_jax(M, K, N):
+    """The plain quantize and GEMM (the kernels' references on the card)
+    equal JAX's ``matmul_w8a8`` bit for bit where N and K are not multiples
+    of 128: Orpheus-1B's ``wk`` at tp = 8, (2048, 64), an N tail (200) and a
+    K tail (1040, a multiple of 16 only)."""
+    rng = np.random.default_rng(M * N + K)
+    h = _activations(M, K, seed=K + N)
+    w = jq.quantize_weight(jnp.asarray(rng.normal(size=(K, N)).astype(np.float32)))
+    tw = {n: torch.from_numpy(np.array(t)) for n, t in w.items()}
+    hb = jnp.asarray(h).astype(jnp.bfloat16)
+    want = np.asarray(jq.matmul_w8a8(hb, w).astype(jnp.float32))
+    th = torch.from_numpy(h).to(torch.bfloat16)
+    h8, hsc = wg.quantize_rows_plain(th)
+    jh8, jhsc = _jax_quantization(th.float().numpy())
+    np.testing.assert_array_equal(h8.numpy(), jh8)
+    np.testing.assert_array_equal(hsc.numpy(), jhsc)
+    got = wg.w8a8_gemm_plain(h8, hsc, tw["q"].T.contiguous(), tw["scale"], torch.bfloat16)
+    assert got.shape == (M, N)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("M,K,N,want", [
+    (32, 3072, 5120, (64, 96, 1)), (32, 3072, 3072, (64, 96, 1)), (32, 3072, 16384, (64, 128, 1)),
+    (64, 8192, 3072, (64, 96, 4)), (128, 3072, 3072, (128, 96, 4)), (65, 3072, 16384, (128, 128, 1)),
+    (1, 2048, 64, (64, 128, 8)), (64, 1040, 200, (64, 96, 1)), (100, 1536, 3072, (128, 96, 1)),
+    (129, 3072, 3072, (128, 128, 1)), (1024, 3072, 5120, (128, 128, 1)),
+    (1024, 8192, 3072, (128, 256, 1))])
+def test_gemm_plan_on_short_rounds(M, K, N, want):
+    """Up to 128 rows: 64-row tiles up to 64 rows, and the tile width and
+    split of K with the least estimated time on 132 SMs (one wave; a split
+    where a block's share of the weight would stream longer than the card
+    needs for all of it, plus the split's reduction), two weight tiles
+    requested early; from 129 rows the 128-row tiles of ``block_n``,
+    unsplit, none early."""
+    plan = wg.gemm_plan(M, N, K, 132)
+    assert plan[:3] == want
+    bm, bn, cs, prefetch = plan
+    assert prefetch == (wg.SHORT_PREFETCH if M <= 128 else 0)
+    if M <= 128:
+        blocks = -(-N // bn) * cs
+        assert (bn // 8) % cs == 0 and cs <= -(-K // 128) and (cs == 1 or blocks <= 132)
+        for other_bn in wg.SHORT_TILE_N:  # no valid plan is estimated faster
+            for other_cs in wg.SPLITS:
+                if other_cs == 1 or ((other_bn // 8) % other_cs == 0 and other_cs <= -(-K // 128)
+                                     and -(-N // other_bn) * other_cs <= 132):
+                    assert wg.short_call_s(M, N, K, bm, bn, cs, 132) <= \
+                        wg.short_call_s(M, N, K, bm, other_bn, other_cs, 132)
+
+
+def test_gemm_plan_keeps_every_cluster_resident():
+    """Where the card holds fewer clusters of a split than its column tiles
+    (a cluster's blocks share a GPC), the plan takes a split it holds."""
+    assert wg.gemm_plan(32, 3072, 8192, 132)[:3] == (64, 96, 4)
+    held = lambda bm, bn, cs: 28 if cs == 4 else 66  # noqa: E731
+    assert wg.gemm_plan(32, 3072, 8192, 132, held)[:3] == (64, 128, 4)  # 24 clusters
+
+
+@pytest.mark.parametrize("magnitude", [1e-6, 1.0, 3.0, 1e4])
+def test_reciprocal_codes_equal_division(magnitude):
+    """The quantize kernel's codes (``csrc/w8a8_gemm.cu: code_of``, here in
+    fp32 PyTorch ops): ``rint(x * (1 / hsc))``, or ``rint(x / hsc)`` where
+    the product lies within 2**-14 of a half-integer, equal ``rint(x /
+    hsc)`` for every value: the product is within 2**-16 of the rounded
+    quotient.  Rows of normals, ties on .5 and the values that make them."""
+    gen = torch.Generator().manual_seed(int(magnitude * 7) + 1)
+    x = torch.randn(512, 2048, generator=gen) * magnitude
+    x[:, :64] = torch.arange(64, dtype=torch.float32) * 0.5 - 16
+    peak = x.abs().amax(dim=-1, keepdim=True)
+    s = torch.clamp(peak, min=1e-8) / torch.tensor(127.0)
+    r = torch.tensor(1.0) / s
+    q = x * r
+    c = torch.round(q)
+    near = (q - c).abs() >= 0.5 - 2.0**-14
+    exact = torch.round(x / s)
+    assert torch.equal(torch.where(near, exact, c), exact)
+    assert near.float().mean() < 1e-2
+
+
+@pytest.mark.parametrize("site", ["quantize_kv", "dense q", "dense p", "weight", "embedding"])
+def test_int8_scale_sites_equal_jax(site):
+    """The five scales that divide by 127 (``quant.div127``: a tensor
+    divisor, so the card divides too) equal JAX's op by op, bit for bit:
+    ``quantize_kv``, the dense int8 branch's query and probability scales
+    (JAX ``llama.py:1148-1150``, ``:1171``, inline there, so their
+    expressions are run here), the weights' and the embedding's."""
+    from project_morpheus_tpu.model import llama as jl
+
+    rng = np.random.default_rng(len(site))
+    x = (rng.normal(size=(6, 4, 64)) * 3).astype(np.float32)
+    x[0, 0] = 0  # the floor
+    if site == "quantize_kv":
+        got, want = tl.quantize_kv(torch.from_numpy(x))[1], jl.quantize_kv(jnp.asarray(x))[1]
+    elif site == "dense q":
+        got = tl.int8_q_scale(torch.from_numpy(x))
+        want = jnp.maximum(jnp.max(jnp.abs(jnp.asarray(x)), axis=-1), 1e-8) / 127.0
+    elif site == "dense p":
+        p = np.abs(x) * 1e-3
+        got = tl.int8_p_scale(torch.from_numpy(p))
+        want = jnp.maximum(jnp.max(jnp.asarray(p), axis=-1), 1e-30) / 127.0
+    elif site == "weight":
+        w = x.reshape(24, 64)
+        got, want = tq.quantize_weight(torch.from_numpy(w))["scale"], \
+            jq.quantize_weight(jnp.asarray(w))["scale"]
+    else:
+        e = x.reshape(24, 64)
+        got = tq.quantize_params_int8({"embed": torch.from_numpy(e), "layers": {}})["embed"]
+        want = jq.quantize_params_int8({"embed": jnp.asarray(e), "layers": {}})["embed"]
+        np.testing.assert_array_equal(got["q"].numpy(), np.asarray(want["q"]))
+        got, want = got["scale"], want["scale"]
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("M,K", SIZES)
 def test_amax_hook_over_row_halves_equals_whole_row(M, K):
     """A row split in two (a tensor-parallel row-split input): each half
