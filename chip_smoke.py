@@ -46,7 +46,13 @@ Phases, each raising on failure (exit code 1, no result lines):
    kernels, int8 and bf16 caches) against the same path on the CPU (fp32,
    plain twins) on a small model; then serve seeded requests on that model
    with frame programs replayed from CUDA graphs and run eagerly, greedy
-   and at temperature 0.9: the tokens must be identical;
+   and at temperature 0.9: the tokens must be identical; then the windowed
+   SNAC decoder's batched path at full width (``phase_windows_batched``):
+   8 seeded streams of 24 frames and a 3-code tail planned with
+   ``plan_push`` / ``plan_flush``, each round's windows decoded in one
+   ``decode_windows_batched`` call, within 2 LSB of each stream's own
+   ``push_tokens`` + ``flush`` hops; one B = 8 call and the 8
+   single-window calls timed;
 4. serve Orpheus-3B (int8 weights, int8 KV cache, 8 slots x 8192) through
    ``ServingRuntime`` and ``LocalTorchAdapter`` after ``engine.warmup``:
    one ~2,500-token prompt (three prefill chunks, decode bucket >= 2048, so
@@ -141,6 +147,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import importlib
 import json
 import math
 import os
@@ -696,6 +703,101 @@ def phase_reference(torch, dev):
     return worst
 
 
+WINDOW_STREAMS, WINDOW_FRAMES, WINDOW_TAIL = 8, 24, 3  # the serving load's 168 codes + a tail
+
+
+def phase_windows_batched(torch, dev, card: str) -> None:
+    """The windowed decoder's batched path at SNAC 24 kHz full width:
+    ``WINDOW_STREAMS`` seeded streams of ``WINDOW_FRAMES`` frames and a
+    ``WINDOW_TAIL``-code partial tail go to ``plan_push`` in 7-code pieces,
+    then to ``plan_flush``; each round's windows from all streams are
+    decoded in one ``decode_windows_batched`` call.  A second native
+    decoder a stream, on the card, gives the reference hops through
+    ``push_tokens`` and ``flush``: equal hop counts, int16 samples within 2
+    LSB (a truncated last-bit difference, as ``tests/test_torch_snac.py``
+    allows).  Times one B = 8 call against the 8 single-window calls it
+    replaces (CUDA events), and holds one B = 8 call to the same windows
+    decoded on the CPU, within the same 2 LSB."""
+    import numpy as np
+
+    from project_morpheus_tpu_torch.codec import (
+        SNACConfig,
+        StreamingSnacDecoder,
+        decode_windows_batched,
+        init_snac_params,
+    )
+
+    cfg = SNACConfig.snac_24khz()
+    params = init_snac_params(cfg, 0, dev)
+    hop = cfg.frame_samples
+    rng = np.random.default_rng(12)
+    n_codes = 7 * WINDOW_FRAMES + WINDOW_TAIL
+    traces = [rng.integers(0, 4096, n_codes).tolist() for _ in range(WINDOW_STREAMS)]
+    planners = [StreamingSnacDecoder(params, cfg) for _ in traces]
+    batched = [[] for _ in traces]
+    sizes = []
+    eight = None
+    for start in range(0, n_codes + 7, 7):
+        owned = [(s, w) for s, (p, t) in enumerate(zip(planners, traces))
+                 for w in (p.plan_flush() if start >= n_codes else p.plan_push(t[start:start + 7]))]
+        if not owned:
+            continue
+        windows = np.stack([w for _, w in owned])
+        if len(owned) == WINDOW_STREAMS and eight is None:
+            eight = windows
+        sizes.append(len(owned))
+        pcm = decode_windows_batched(params, windows, cfg=cfg, emit_lo=4 * hop,
+                                     emit_hi=5 * hop).cpu().numpy()
+        for (s, _), row in zip(owned, pcm):
+            batched[s].append(row)
+    diffs = []
+    for s, trace in enumerate(traces):
+        ref = StreamingSnacDecoder(params, cfg)
+        want = [h for i in range(0, n_codes, 7) for h in ref.push_tokens(trace[i:i + 7])]
+        want += ref.flush()
+        if len(batched[s]) != len(want) or any(h.shape != (hop,) for h in batched[s]):
+            raise AssertionError(f"windows batched: stream {s} gave {len(batched[s])} hops, "
+                                 f"push_tokens + flush {len(want)}")
+        diffs.append(np.abs(np.stack(batched[s]).astype(np.int32)
+                            - np.stack(want).astype(np.int32)))
+    diff = np.stack(diffs)
+    if int(diff.max()) > 2:
+        raise AssertionError(f"windows batched: hops differ from push_tokens + flush by up to "
+                             f"{int(diff.max())} LSB (limit 2)")
+
+    def device_ms(fn, reps: int = 20) -> float:
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    kw = dict(cfg=cfg, emit_lo=4 * hop, emit_hi=5 * hop)
+    windows_dev = torch.as_tensor(eight, device=dev)
+    # the same weights and windows through the CPU's fp32 path
+    cpu_pcm = decode_windows_batched(init_snac_params(cfg, 0, "cpu"), eight, **kw).numpy()
+    cpu_diff = np.abs(decode_windows_batched(params, windows_dev, **kw).cpu().numpy()
+                      .astype(np.int32) - cpu_pcm.astype(np.int32))
+    if int(cpu_diff.max()) > 2:
+        raise AssertionError(f"windows batched: a B = {WINDOW_STREAMS} call differs from the "
+                             f"CPU's by up to {int(cpu_diff.max())} LSB (limit 2)")
+    one_ms = device_ms(lambda: decode_windows_batched(params, windows_dev, **kw))
+    singles_ms = device_ms(lambda: [decode_windows_batched(params, windows_dev[i:i + 1], **kw)
+                                    for i in range(WINDOW_STREAMS)])
+    log(f"windows batched: {WINDOW_STREAMS} streams x {len(batched[0])} hops, rounds of "
+        f"{sorted(set(sizes))} windows; {100 * float((diff > 0).mean()):.4f}% of "
+        f"{diff.size} samples differ from push_tokens + flush, largest {int(diff.max())} LSB "
+        f"(limit 2); a B = {WINDOW_STREAMS} call against the CPU's: "
+        f"{100 * float((cpu_diff > 0).mean()):.4f}% differ, largest {int(cpu_diff.max())} LSB")
+    log(f"windows batched: one B = {WINDOW_STREAMS} call {one_ms:.4f} ms, "
+        f"{WINDOW_STREAMS} single-window calls {singles_ms:.4f} ms (device, CUDA events, "
+        f"mean of 20) [{card}]")
+
+
 def phase_graphs(torch, dev) -> None:
     """Seeded requests on a small int8 model: graph replay == eager."""
     from project_morpheus_tpu_torch.tools import graph_check as gc
@@ -844,7 +946,7 @@ async def serving_phases(card: str, records) -> str:
     from project_morpheus_tpu_torch.adapters import runtime as rt
     from project_morpheus_tpu_torch.model.quant import add_k_major_copies
     from project_morpheus_tpu_torch.model.tokenizer import format_prompt_ids
-    from project_morpheus_tpu_torch.ops import decode_attention as da
+    da = importlib.import_module("project_morpheus_tpu_torch.ops.decode_attention")
     from project_morpheus_tpu_torch.ops import int8_gemv as ig
     from project_morpheus_tpu_torch.ops import prefill_attention as pa
     from project_morpheus_tpu_torch.ops import w8a8_gemm as wg
@@ -1365,7 +1467,7 @@ async def phase_checkpoint(card: str, records) -> None:
     from project_morpheus_tpu_torch.model import LlamaConfig
     from project_morpheus_tpu_torch.model.llama import init_llama_params
     from project_morpheus_tpu_torch.model.tokenizer import BPETokenizer, format_prompt_ids
-    from project_morpheus_tpu_torch.ops import decode_attention as da
+    da = importlib.import_module("project_morpheus_tpu_torch.ops.decode_attention")
     from project_morpheus_tpu_torch.ops import int8_gemv as ig
     from project_morpheus_tpu_torch.ops import w8a8_gemm as wg
 
@@ -2151,7 +2253,7 @@ async def phase_mesh_serving(card: str, torch, records) -> None:
     unsharded engine's."""
     from project_morpheus_tpu_torch.adapters import runtime as rt
     from project_morpheus_tpu_torch.engine import OrpheusEngine
-    from project_morpheus_tpu_torch.ops import decode_attention as da
+    da = importlib.import_module("project_morpheus_tpu_torch.ops.decode_attention")
     from project_morpheus_tpu_torch.ops import int8_gemv as ig
     from project_morpheus_tpu_torch.ops import prefill_attention as pa
     from project_morpheus_tpu_torch.ops import w8a8_gemm as wg
@@ -2303,7 +2405,9 @@ def tp2_main(device: str = "cuda", cfg=None) -> int:
     from project_morpheus_tpu_torch.model.quant import quantize_params_int8
     from project_morpheus_tpu_torch.model.sampling import SamplingParams
     from project_morpheus_tpu_torch.model.tokenizer import format_prompt_ids
-    from project_morpheus_tpu_torch.ops import build, decode_attention as da, int8_gemv as ig
+    from project_morpheus_tpu_torch.ops import build, int8_gemv as ig
+
+    da = importlib.import_module("project_morpheus_tpu_torch.ops.decode_attention")
     from project_morpheus_tpu_torch.ops import w8a8_gemm as wg
     from project_morpheus_tpu_torch.parallel import initialize_distributed, make_mesh
     from project_morpheus_tpu_torch.parallel.mesh import STATE
@@ -2635,7 +2739,9 @@ def phase_parallel(card: str, records) -> None:
 def run(card: str) -> None:
     import torch
 
-    from project_morpheus_tpu_torch.ops import build, decode_attention as da
+    from project_morpheus_tpu_torch.ops import build
+
+    da = importlib.import_module("project_morpheus_tpu_torch.ops.decode_attention")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2657,6 +2763,7 @@ def run(card: str) -> None:
     phase_int8_scales(torch, dev)
     phase_reference(torch, dev)
     phase_graphs(torch, dev)
+    phase_windows_batched(torch, dev, card)
 
     gemv_line = asyncio.run(serving_phases(card, records))
     asyncio.run(phase_checkpoint(card, records))

@@ -135,6 +135,11 @@ def snac_stream_body(
     return (x * 32767.0).to(torch.int16), ns
 
 
+# the JAX package's name for its jitted hop (which donates ``state``: the
+# body already returns a new dict)
+snac_stream_step = snac_stream_body
+
+
 # ------------------------------------------------------------- host planner
 
 

@@ -22,6 +22,10 @@ The decode window is recomputed per hop (like the reference).  The
 serving engine uses ``stream_decode`` instead (cached conv tails, exact
 prefix-decode output); this module is the A/B and golden-trace decoder
 (``make_stream_decoder(mode="windowed" | "parity")``).
+
+Many native streams decode together: ``plan_push`` / ``plan_flush`` return
+the windows that ``push_tokens`` / ``flush`` would decode, and
+:func:`decode_windows_batched` decodes a stack of them in one call.
 """
 from __future__ import annotations
 
@@ -35,14 +39,30 @@ from .snac import snac_decode
 from .snac_config import SNACConfig
 
 
+HOP_SAMPLES = 2048  # samples emitted per 7-token hop (snac_24khz)
+
+
+@torch.no_grad()
+def decode_windows_batched(params, windows, *, cfg: SNACConfig, emit_lo: int,
+                           emit_hi: int) -> torch.Tensor:
+    """Decode many streams' windows in one call: ``windows`` ``(B, n_frames
+    * 7)`` integer codebook entries (a tensor or an array) -> int16 PCM
+    ``(B, emit_hi - emit_lo)`` on the params' device, scaled by 32767 and
+    truncated as the reference does.  One ``tokens_to_codes`` and one
+    ``snac_decode`` over the whole batch."""
+    dev = params["decoder"]["out_w"].device
+    if not isinstance(windows, torch.Tensor):
+        windows = torch.as_tensor(np.asarray(windows))
+    audio = snac_decode(params, tokens_to_codes(windows.to(dev)), cfg)
+    return (audio[:, emit_lo:emit_hi] * 32767.0).to(torch.int16)
+
+
 def _decode_window_slice(params, tokens: np.ndarray, cfg: SNACConfig, emit_lo: int,
                          emit_hi: int) -> np.ndarray:
     """Decode one window of codebook entries; int16 PCM of ``[emit_lo,
-    emit_hi)`` (scaled by 32767 and truncated, as the reference does)."""
-    dev = params["decoder"]["out_w"].device
-    codes = tokens_to_codes(torch.as_tensor(tokens[None], device=dev))
-    audio = snac_decode(params, codes, cfg)
-    return (audio[0, emit_lo:emit_hi] * 32767.0).to(torch.int16).cpu().numpy()
+    emit_hi)``."""
+    pcm = decode_windows_batched(params, tokens[None], cfg=cfg, emit_lo=emit_lo, emit_hi=emit_hi)
+    return pcm[0].cpu().numpy()
 
 
 class StreamingSnacDecoder:
@@ -73,44 +93,63 @@ class StreamingSnacDecoder:
 
     def push_tokens(self, codes: Sequence[int]) -> List[np.ndarray]:
         """Feed codebook entries (band-unshifted ids); returns PCM16 hops."""
+        if self.mode == "native":
+            return [self._emit_native(w) for w in self.plan_push(codes)]
         out: List[np.ndarray] = []
         for code in codes:
             self._buffer.append(int(code))
             if len(self._buffer) % FRAME_TOKENS == 0:
-                hop = self._on_frame()
+                hop = self._parity_hop()
                 if hop is not None:
                     out.append(hop)
         return out
 
     def flush(self) -> List[np.ndarray]:
         """End of stream: drain remaining frames (reference :262-293)."""
-        if self.mode == "parity":
-            hop = self._parity_flush()
-            return [] if hop is None else [hop]
-        # native: pad the trailing partial frame by repeating the last code,
-        # then emit every not-yet-emitted frame with replicate right-context
+        if self.mode == "native":
+            return [self._emit_native(w) for w in self.plan_flush()]
+        hop = self._parity_flush()
+        return [] if hop is None else [hop]
+
+    # --------------------------------------------------- batched planning
+
+    def plan_push(self, codes: Sequence[int]) -> List[np.ndarray]:
+        """Like :meth:`push_tokens`, but return the 7-frame decode windows
+        instead of PCM (native mode only), for the caller to decode many
+        streams' windows in one :func:`decode_windows_batched` call with
+        ``emit_lo=4 * hop, emit_hi=5 * hop``."""
+        self._require_native("plan_push")
+        windows: List[np.ndarray] = []
+        for code in codes:
+            self._buffer.append(int(code))
+            if len(self._buffer) % FRAME_TOKENS == 0:
+                k = self.frames_buffered
+                e = self._emitted_frames
+                if (e == 0 and k >= 1) or (k >= e + 1 + self.lookahead):
+                    windows.append(self._window_for(e, k))
+                    self._emitted_frames += 1
+        return windows
+
+    def plan_flush(self) -> List[np.ndarray]:
+        """The end-of-stream windows (native mode only): pad the trailing
+        partial frame by repeating the last code, then one window for every
+        frame not yet emitted, with replicate right-context."""
+        self._require_native("plan_flush")
         if self._buffer and len(self._buffer) % FRAME_TOKENS != 0:
             pad = FRAME_TOKENS - len(self._buffer) % FRAME_TOKENS
             self._buffer.extend([self._buffer[-1]] * pad)
-        out = []
         k = self.frames_buffered
+        windows = []
         while self._emitted_frames < k:
-            out.append(self._emit_native(self._emitted_frames, k))
+            windows.append(self._window_for(self._emitted_frames, k))
             self._emitted_frames += 1
-        return out
+        return windows
 
     # ------------------------------------------------------------- native
 
-    def _on_frame(self) -> Optional[np.ndarray]:
-        if self.mode == "parity":
-            return self._parity_hop()
-        k = self.frames_buffered
-        e = self._emitted_frames
-        if not ((e == 0 and k >= 1) or (k >= e + 1 + self.lookahead)):
-            return None
-        hop = self._emit_native(e, k)
-        self._emitted_frames += 1
-        return hop
+    def _require_native(self, what: str) -> None:
+        if self.mode != "native":
+            raise ValueError(f"{what} plans native-mode windows; this decoder is {self.mode!r}")
 
     def _window_for(self, e: int, k: int) -> np.ndarray:
         """Static 7-frame window [e-4 .. e+2] (edge-replicated) for frame e,
@@ -119,9 +158,8 @@ class StreamingSnacDecoder:
         idx = np.clip(np.arange(e - 4, e + 3), 0, k - 1)
         return frames[idx].reshape(-1)
 
-    def _emit_native(self, e: int, k: int) -> np.ndarray:
-        return _decode_window_slice(self.params, self._window_for(e, k), self.cfg,
-                                    4 * self.hop, 5 * self.hop)
+    def _emit_native(self, window: np.ndarray) -> np.ndarray:
+        return _decode_window_slice(self.params, window, self.cfg, 4 * self.hop, 5 * self.hop)
 
     # -------------------------------------------------------- parity mode
 

@@ -69,9 +69,12 @@ def _quant_rows(part: torch.Tensor):
     return torch.clamp(torch.round(part / scale), -127, 127).to(torch.int8), scale[:, 0]
 
 
-def quantize_weight(w: torch.Tensor) -> QLeaf:
-    """Symmetric per-output-channel int8 over the contraction axis; stacked
-    (layers, in, out) weights quantize one layer slice at a time."""
+def quantize_weight(w: torch.Tensor, axis: int = -2) -> QLeaf:
+    """Symmetric per-output-channel int8 over the contraction axis (the
+    second last, the only one taken); stacked (layers, in, out) weights
+    quantize one layer slice at a time."""
+    if axis not in (-2, w.ndim - 2):
+        raise ValueError(f"quantize_weight reduces over axis -2, not {axis}")
     if w.ndim == 3:
         parts = [_quant_2d(w[i]) for i in range(w.shape[0])]
         return {
@@ -79,6 +82,12 @@ def quantize_weight(w: torch.Tensor) -> QLeaf:
             "scale": torch.stack([p["scale"] for p in parts]),
         }
     return _quant_2d(w)
+
+
+def dequantize_weight(leaf: QLeaf, dtype=torch.bfloat16, axis: int = -2) -> torch.Tensor:
+    """``q * scale`` in fp32, cast to ``dtype``; 2-D or stacked leaves (a
+    K-major copy ``"qt"`` is not read)."""
+    return (leaf["q"].float() * leaf["scale"].unsqueeze(axis)).to(dtype)
 
 
 def _gemv_rows(h: torch.Tensor) -> bool:

@@ -14,7 +14,7 @@ JAX engine advances each slot's key chain.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -40,6 +40,33 @@ class SamplingParams:
             top_p=min(max(self.top_p, 1e-3), 1.0),
             repetition_penalty=max(self.repetition_penalty, 1.0),
         )
+
+
+def init_sampler_state(batch: int, padded_vocab: int, device="cuda") -> Dict[str, torch.Tensor]:
+    """Per-slot state: which token ids each slot has seen."""
+    return {"presence": torch.zeros(batch, padded_vocab, dtype=torch.bool, device=device)}
+
+
+def note_tokens(state: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """Mark ``tokens`` (B,) or (B, S) as seen in a new state; ``mask``
+    excludes padding.  A token marks its slot when any of its masked-in
+    occurrences does (the JAX scatter leaves a token that a row holds both
+    masked in and masked out to the order of its writes)."""
+    presence = state["presence"].clone()
+    if tokens.ndim == 1:
+        tokens = tokens[:, None]
+    rows = torch.arange(presence.shape[0], device=presence.device)[:, None].expand(tokens.shape)
+    if mask is None:
+        presence[rows, tokens.long()] = True
+    else:
+        presence[rows[mask], tokens.long()[mask]] = True
+    return {"presence": presence}
+
+
+def reset_slots(state: Dict[str, torch.Tensor], slot_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """A new state with the presence of the slots in ``slot_mask`` cleared."""
+    return {"presence": state["presence"] & ~slot_mask[:, None]}
 
 
 def penalized_logits(logits, *, repetition_penalty, presence, vocab_size):

@@ -280,6 +280,10 @@ class BPETokenizer:
         return text
 
 
+# the JAX package's name for its local HF tokenizer
+HFTokenizer = BPETokenizer
+
+
 @functools.lru_cache(maxsize=4)
 def load_tokenizer(path: str) -> BPETokenizer:
     """The ``BPETokenizer`` of a directory holding ``tokenizer.json`` (or

@@ -60,6 +60,24 @@ def reset_launch_counts() -> None:
 # ------------------------------------------------------------- plain twins
 
 
+def decode_attention_reference(q, k_cache, v_cache, lengths) -> torch.Tensor:
+    """The JAX package's dense oracle: q (B,H,HD), k/v (B,KV,S,HD), lengths
+    (B,).  Scores in fp32 times HD**-0.5, positions at or past ``lengths``
+    at -1e30, softmax, probabilities cast to V's dtype and accumulated in
+    fp32, the output in q's dtype.  A slot of length 0 gives the mean of V
+    (the kernels and their twins give zeros there)."""
+    B, H, HD = q.shape
+    KV, S = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(B, KV, H // KV, HD)
+    scores = torch.einsum("bkgd,bksd->bkgs", qg.float(), k_cache.float()) * HD**-0.5
+    live = torch.arange(S, device=q.device)[None, :] < lengths[:, None].long()
+    scores = torch.where(live[:, None, None, :], scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bkgs,bksd->bkgd", probs.float(), v_cache.float())
+    return out.reshape(B, H, HD).to(q.dtype)
+
+
+
 def _flash_plain(q, k, v, k_scale, v_scale, lengths) -> torch.Tensor:
     """Dense fp32 twin of the flash kernels: q (B,H,HD), k/v (B,KV,S,HD),
     optional per-position scales (B,KV,S); zeros for a length-0 slot."""

@@ -89,6 +89,7 @@ Prints one line per variant and round; needs a CUDA card.
 """
 from __future__ import annotations
 
+import importlib
 import shutil
 import sys
 
@@ -389,8 +390,10 @@ def prefill_main(argv) -> None:
 def main(names) -> None:
     import torch
 
-    from project_morpheus_tpu_torch.ops import build, decode_attention as da
+    from project_morpheus_tpu_torch.ops import build
     from project_morpheus_tpu_torch.tools import time_kernels as tk
+
+    da = importlib.import_module("project_morpheus_tpu_torch.ops.decode_attention")
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ablation: needs a CUDA card")

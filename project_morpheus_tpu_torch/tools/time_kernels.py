@@ -59,6 +59,7 @@ device ms a call (``w8a8_ab_times``) at the four 3B weights: copied into a
 """
 from __future__ import annotations
 
+import importlib
 import json
 import re
 import time
@@ -466,7 +467,9 @@ def main() -> None:
 
     import torch
 
-    from project_morpheus_tpu_torch.ops import build, decode_attention as da
+    from project_morpheus_tpu_torch.ops import build
+
+    da = importlib.import_module("project_morpheus_tpu_torch.ops.decode_attention")
 
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: needs a CUDA card")

@@ -14,17 +14,21 @@ order); the int8 GEMV against its bf16 twin, 2**-6 |ref| + 1e-3 (the twin
 rounds three times to bf16: the product, the scale and the scaled output;
 the kernel once: up to about two bf16 ulps apart); the w8a8 kernels none
 (every step is exact or correctly rounded)."""
+import importlib
+
 import pytest
 import torch
 
 import chip_smoke
 from project_morpheus_tpu_torch.model import hf_weights as hw
 from project_morpheus_tpu_torch.model.llama import init_llama_params
-from project_morpheus_tpu_torch.ops import decode_attention as da
 from project_morpheus_tpu_torch.ops import int8_gemv as ig
 from project_morpheus_tpu_torch.ops import prefill_attention as pa
 from project_morpheus_tpu_torch.ops import w8a8_gemm as wg
 from project_morpheus_tpu_torch.tools import graph_check as gc
+
+# the package exports the function under the module's name
+da = importlib.import_module("project_morpheus_tpu_torch.ops.decode_attention")
 
 
 @pytest.fixture

@@ -9,6 +9,8 @@ the Pallas kernels give (the dense oracle gives the mean of V there).
 
 The CUDA kernels are held against these twins on the card by
 ``tests/test_torch_cuda.py``, which imports no JAX."""
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,9 +21,11 @@ from project_morpheus_tpu.ops.decode_attention import (
     decode_attention_int8_slots as jax_slots,
     decode_attention_layered as jax_layered,
 )
-from project_morpheus_tpu_torch.ops import decode_attention as da
 
 TOL = dict(rtol=2e-4, atol=2e-4)
+
+# the package exports the function under the module's name
+da = importlib.import_module("project_morpheus_tpu_torch.ops.decode_attention")
 
 
 def _t(x):
