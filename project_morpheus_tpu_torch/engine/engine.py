@@ -46,12 +46,16 @@
   eagerly over gloo, which cannot be captured; prefill rounds likewise,
   and they stay eager under ``data`` > 1, where the jobs a rank's cache
   holds change a round's shape.
+- **Trace** (``start_trace()``, ``trace.py``): off by default; while on,
+  request and loop spans, lane counts, and device stage stamps in every
+  frame program captured meanwhile, all kept in memory.
 """
 from __future__ import annotations
 
 import asyncio
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import logging
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -68,6 +72,7 @@ from ..parallel.tensor import NO_TP, tensor_parallel
 from ..utils.device import resolve_device
 from .graphs import ProgramCache, StaticInputs
 from .request import Request, RequestState
+from .trace import EngineTrace, Stamps
 
 _AUDIO_BASE = ORPHEUS_SPECIAL_TOKENS["audio_base"]
 _CODEBOOK = 4096
@@ -79,6 +84,8 @@ _MAX_CUSTOM_STOPS = 8
 logger = logging.getLogger(__name__)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "int8": torch.int8, "float32": torch.float32}
+# a span site while the trace is off
+_NO_SPAN = contextlib.nullcontext()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -290,6 +297,8 @@ class OrpheusEngine:
         self.steps = 0
         # prefill rounds run, by width J
         self.prefill_rounds: collections.Counter = collections.Counter()
+        # the in-memory trace (trace.py), None while off
+        self.trace: Optional[EngineTrace] = None
 
     def _init_mesh(self, mesh) -> None:
         import torch.distributed as dist
@@ -316,11 +325,29 @@ class OrpheusEngine:
     def supports_audio(self) -> bool:
         return self._codec is not None
 
+    def start_trace(self) -> EngineTrace:
+        """Turn the trace on (``trace.py``), or return the one that is on.
+        Frame programs captured from now on take device stamps."""
+        if self.trace is None:
+            self.trace = EngineTrace(self.device)
+        return self.trace
+
+    def stop_trace(self) -> Optional[EngineTrace]:
+        """Turn the trace off; returns what it recorded."""
+        trace, self.trace = self.trace, None
+        return trace
+
+    def _span(self, name: str, device: bool = False):
+        """The trace's span ``name`` around a block; nothing while it is off."""
+        return _NO_SPAN if self.trace is None else self.trace.span(name, device)
+
     async def submit(self, prompt_ids: Sequence[int],
                      sampling: Optional[SamplingParams] = None, *,
                      audio: bool = False) -> Request:
         req = Request(list(prompt_ids), (sampling or SamplingParams()).clipped())
         req.on_drain = self._wake.set
+        if self.trace is not None:
+            self.trace.request_start(req)
         if audio:
             if not self.supports_audio:
                 raise ValueError("engine built without a codec; audio mode off")
@@ -339,6 +366,8 @@ class OrpheusEngine:
         if req.done:
             return
         req.state = RequestState.CANCELLED
+        if self.trace is not None:
+            self.trace.request_end(req)
         if req.slot is not None:
             if self._ctrl is not None:
                 self._cancel_slots.add(req.slot)
@@ -443,6 +472,8 @@ class OrpheusEngine:
             if req.slot is not None:
                 self._evict(req.slot)
             req.state = RequestState.CANCELLED
+            if self.trace is not None:
+                self.trace.request_end(req)
             req.token_queue.put_nowait(None)
             if req.audio:
                 req.pcm_queue.put_nowait(None)
@@ -484,6 +515,8 @@ class OrpheusEngine:
             seed = int(torch.randint(0, 2**62, (1,), generator=self._seed_gen))
         slot = self._free.pop()
         req.slot = slot
+        if self.trace is not None:
+            self.trace.request_phase(req, "request.queue")
         req.state = RequestState.PREFILLING
         self._by_slot[slot] = req
         if req.audio:
@@ -585,6 +618,8 @@ class OrpheusEngine:
         for i, job in enumerate(group):
             job["req"].state = RequestState.DECODING
             self._pending_first.append((job["slot"], job["req"], first[i:i + 1]))
+            if self.trace is not None:
+                self.trace.request_phase(job["req"], "request.prefill")
         done = {id(j) for j in group}
         self._prefill_jobs = [j for j in self._prefill_jobs if id(j) not in done]
 
@@ -602,38 +637,41 @@ class OrpheusEngine:
         program runs (on the card: replays), so no copy is captured.  The
         first tokens are copied out of the program's outputs, which the
         next round of the same key overwrites."""
-        J = len(group)
-        M = _MAX_CUSTOM_STOPS
-        # per job: chunk tokens, then length, offset, slot, context length,
-        # budget, audio flag, seed, stop ids (_prefill_program's columns)
-        ints = np.zeros((J, clen + 7 + M), np.int64)
-        for i, job in enumerate(group):
-            off = job["offset"]
-            # device-indexed cache writes must stay inside the cache
-            assert off + clen <= self.ecfg.max_seq_len, (off, clen, self.ecfg.max_seq_len)
-            part = job["ids"][off: off + clen]
-            ints[i, : len(part)] = part
-            ints[i, clen: clen + 7] = (len(part), off, job["slot"], off + len(part),
-                                       job["allowed"], int(job["audio"]), job["seed"])
-            ints[i, clen + 7:] = job["stops"]
-        samp = np.asarray([job["samp"] for job in group], np.float32)
-        key = ("prefill", clen, hist, final, J, self.ecfg.banded_sampling,
-               self.ecfg.lenient_audio_codes, self._w8a8)
-        inputs = self._prefill_inputs.get(key)
-        if inputs is None:
-            inputs = self._prefill_inputs[key] = StaticInputs(
-                [(ints.shape, torch.int64), (samp.shape, torch.float32)], self.device)
-        inputs.stage((ints, samp))
-        bufs = inputs.bufs
-        mine = None
-        if self._data_split:  # the jobs whose slots this rank's cache holds
-            lo, hi = self._slots.start, self._slots.stop
-            mine = [i for i, job in enumerate(group) if lo <= job["slot"] < hi]
-        outs = self.programs.run(
-            key, lambda: self._prefill_program(bufs, clen, hist, final, mine),
-            graph=self.prefill_graphs and mine is None)
-        self.prefill_rounds[J] += 1
-        return outs[0].clone() if final else None
+        with self._span("engine.prefill_round", device=True):
+            J = len(group)
+            M = _MAX_CUSTOM_STOPS
+            # per job: chunk tokens, then length, offset, slot, context length,
+            # budget, audio flag, seed, stop ids (_prefill_program's columns)
+            ints = np.zeros((J, clen + 7 + M), np.int64)
+            for i, job in enumerate(group):
+                off = job["offset"]
+                # device-indexed cache writes must stay inside the cache
+                assert off + clen <= self.ecfg.max_seq_len, (off, clen, self.ecfg.max_seq_len)
+                part = job["ids"][off: off + clen]
+                ints[i, : len(part)] = part
+                ints[i, clen: clen + 7] = (len(part), off, job["slot"], off + len(part),
+                                           job["allowed"], int(job["audio"]), job["seed"])
+                ints[i, clen + 7:] = job["stops"]
+            samp = np.asarray([job["samp"] for job in group], np.float32)
+            key = ("prefill", clen, hist, final, J, self.ecfg.banded_sampling,
+                   self.ecfg.lenient_audio_codes, self._w8a8)
+            inputs = self._prefill_inputs.get(key)
+            if inputs is None:
+                inputs = self._prefill_inputs[key] = StaticInputs(
+                    [(ints.shape, torch.int64), (samp.shape, torch.float32)], self.device)
+            with self._span("engine.stage_inputs"):
+                inputs.stage((ints, samp))
+            bufs = inputs.bufs
+            mine = None
+            if self._data_split:  # the jobs whose slots this rank's cache holds
+                lo, hi = self._slots.start, self._slots.stop
+                mine = [i for i, job in enumerate(group) if lo <= job["slot"] < hi]
+            with self._span("engine.replay"):
+                outs = self.programs.run(
+                    key, lambda: self._prefill_program(bufs, clen, hist, final, mine),
+                    graph=self.prefill_graphs and mine is None)
+            self.prefill_rounds[J] += 1
+            return outs[0].clone() if final else None
 
     def _prefill_program(self, bufs, clen: int, hist: int, final: bool,
                          mine: Optional[List[int]]) -> tuple:
@@ -719,6 +757,8 @@ class OrpheusEngine:
             req.state = RequestState.FINISHED
             if req.slot is not None:
                 self._evict(req.slot)
+            if self.trace is not None and not req.audio:  # audio ends with its last hop
+                self.trace.request_end(req)
             req.token_queue.put_nowait(None)
 
     def _context_bucket(self, n_steps: int) -> Optional[int]:
@@ -739,19 +779,21 @@ class OrpheusEngine:
         """(B,) bool gate from consumer-queue depth, or None when no live
         slot can take a frame.  On a mesh a slot is gated when any rank's
         consumer is saturated (agreed by a host all-reduce)."""
-        gate = np.ones((self.ecfg.max_slots,), bool)
-        for slot, req in self._by_slot.items():
-            depth = req.pcm_queue.qsize() if req.audio else req.token_queue.qsize()
-            limit = self.ecfg.max_queued_hops if req.audio else self.ecfg.max_queued_tokens
-            if depth >= limit:
-                gate[slot] = False
-        if self._ctrl is not None:
-            agreed = torch.from_numpy(gate.astype(np.int64))
-            torch.distributed.all_reduce(agreed, torch.distributed.ReduceOp.MIN, group=self._ctrl)
-            gate = agreed.numpy().astype(bool)
-        any_ready = any(gate[slot] and req.state is RequestState.DECODING
-                        for slot, req in self._by_slot.items())
-        return gate if any_ready else None
+        with self._span("engine.gate"):
+            gate = np.ones((self.ecfg.max_slots,), bool)
+            for slot, req in self._by_slot.items():
+                depth = req.pcm_queue.qsize() if req.audio else req.token_queue.qsize()
+                limit = self.ecfg.max_queued_hops if req.audio else self.ecfg.max_queued_tokens
+                if depth >= limit:
+                    gate[slot] = False
+            if self._ctrl is not None:
+                agreed = torch.from_numpy(gate.astype(np.int64))
+                torch.distributed.all_reduce(agreed, torch.distributed.ReduceOp.MIN,
+                                             group=self._ctrl)
+                gate = agreed.numpy().astype(bool)
+            any_ready = any(gate[slot] and req.state is RequestState.DECODING
+                            for slot, req in self._by_slot.items())
+            return gate if any_ready else None
 
     def _agree(self) -> bool:
         """The top of a loop turn: fixes how many queued requests to admit
@@ -799,21 +841,28 @@ class OrpheusEngine:
 
     # -------------------------------------------------- the frame program
 
-    def _decode_core(self, attn_impl: str, bucket, banded: bool):
+    def _decode_core(self, attn_impl: str, bucket, banded: bool,
+                     stamp: Optional[Stamps] = None):
         """One decode + sample step over the slot table; returns (B,) tokens,
         -1 on lanes that did not emit.  A lane's draw counter advances only
-        on steps where it emits."""
+        on steps where it emits.  ``stamp`` marks the step's stages."""
+        if stamp is not None:
+            stamp("step")
         active = self.active & self._gate
         sl = self._slots  # this rank's slots: all of them without a data split
         logits = llama_decode_step(self.params, self.last_tokens[sl], self.cfg, self.cache,
                                    self.lengths[sl], active=active[sl], attn_impl=attn_impl,
-                                   bucket=bucket, tp=self.tp)
+                                   bucket=bucket, tp=self.tp, stamp=stamp)
+        if stamp is not None:
+            stamp("trunk")
         if banded:
             logits = _band_mask_logits(logits, self.is_audio[sl], self.audio_pos[sl])
         toks = sample_logits(logits, self.seeds[sl], self.draws[sl], temperature=self.temp[sl],
                              top_p=self.top_p[sl], repetition_penalty=self.rep_pen[sl],
                              presence=self.presence[sl], vocab_size=self.cfg.vocab_size)
         toks = self._gather_slots(toks)
+        if stamp is not None:
+            stamp("sampled")
         toks = torch.where(active, toks, torch.zeros_like(toks))
         idx = (self._rows, toks.long())
         self.presence[idx] = self.presence[idx] | active
@@ -871,17 +920,26 @@ class OrpheusEngine:
         lane with head/steady commit masks and PCM zeroed where no lane
         emits.  Returns ``(toks (n_frames * n_steps, B),)`` or, in audio
         mode, also ``pcm (n_frames, B, frame_samples)`` int16 and
-        ``emit (n_frames, B)``."""
+        ``emit (n_frames, B)``.  Built while the trace is on, it also marks
+        its stage boundaries (``trace.py``) and returns the marks last."""
         rows, pcms, emits = [], [], []
         B = self.ecfg.max_slots
+        stamp = None
+        if self.trace is not None:
+            per_step = 4 + 2 * self.cfg.num_layers
+            stamp = Stamps(n_frames * (n_steps * per_step + 2) + 1, self.device)
         for _ in range(n_frames):
+            if stamp is not None:
+                stamp("frame")
             if audio:
                 self.frame_done.zero_()
             for _ in range(n_steps):
-                toks = self._decode_core(attn, bucket, banded)
+                toks = self._decode_core(attn, bucket, banded, stamp)
                 self._post_step(toks)
                 if audio:
                     self._ring_push(toks, lenient)
+                if stamp is not None:
+                    stamp("bookkept")
                 rows.append(toks)
             if not audio:
                 continue
@@ -896,9 +954,14 @@ class OrpheusEngine:
             emit = head | steady
             pcms.append(torch.where(emit[:, None], pcm, torch.zeros_like(pcm)))
             emits.append(emit)
-        if not audio:
-            return (torch.stack(rows),)
-        return torch.stack(rows), torch.stack(pcms), torch.stack(emits)
+            if stamp is not None:
+                stamp("snac")
+        outs = ((torch.stack(rows), torch.stack(pcms), torch.stack(emits)) if audio
+                else (torch.stack(rows),))
+        if stamp is None:
+            return outs
+        stamp("end")
+        return outs + (stamp.taken(),)
 
     @torch.no_grad()
     def _run_program(self, bucket, k: int, audio: bool) -> tuple:
@@ -907,23 +970,30 @@ class OrpheusEngine:
         lenient = self.ecfg.lenient_audio_codes
         attn = self._attn_for(bucket)
         key = (bucket, attn, self.steps_per_sync, k, audio, banded, lenient)
-        return self.programs.run(key, lambda: self._frame_program(
-            bucket=bucket, attn=attn, n_steps=self.steps_per_sync, n_frames=k,
-            audio=audio, banded=banded, lenient=lenient))
+        with self._span("engine.replay"):
+            return self.programs.run(key, lambda: self._frame_program(
+                bucket=bucket, attn=attn, n_steps=self.steps_per_sync, n_frames=k,
+                audio=audio, banded=banded, lenient=lenient))
 
     def _dispatch_frame(self, gate: np.ndarray):
-        """Issue one frame dispatch; returns (outputs, slot snapshot)."""
-        audio_reqs = [r for r in self._by_slot.values() if r.audio]
-        audio = self._codec is not None and bool(audio_reqs)
-        k = 1
-        if audio and not (self._prefill_jobs or self._pending_first
-                          # an admission is imminent only when a slot is free
-                          or (self._free and self._agreed_pending)
-                          or any(r.planner.emitted == 0 for r in audio_reqs)):
-            k = self.frames_per_dispatch
-        bucket = self._context_bucket(self.steps_per_sync * k)
-        self._gate_in.stage((gate,))
-        return self._run_program(bucket, k, audio), dict(self._by_slot)
+        """Issue one frame dispatch; returns ({"toks", and in audio mode
+        "pcm" and "emit"; "stamps" from a program that took them: device
+        tensors}, slot snapshot)."""
+        with self._span("engine.dispatch"):
+            audio_reqs = [r for r in self._by_slot.values() if r.audio]
+            audio = self._codec is not None and bool(audio_reqs)
+            k = 1
+            if audio and not (self._prefill_jobs or self._pending_first
+                              # an admission is imminent only when a slot is free
+                              or (self._free and self._agreed_pending)
+                              or any(r.planner.emitted == 0 for r in audio_reqs)):
+                k = self.frames_per_dispatch
+            bucket = self._context_bucket(self.steps_per_sync * k)
+            with self._span("engine.stage_inputs"):
+                self._gate_in.stage((gate,))
+            outs = self._run_program(bucket, k, audio)
+            names = ("toks", "pcm", "emit") if audio else ("toks",)
+            return dict(zip(names + ("stamps",), outs)), dict(self._by_slot)
 
     # ---------------------------------------------------------- readback
 
@@ -934,29 +1004,30 @@ class OrpheusEngine:
         A frame's copies go to this turn's set of pinned buffers (two sets:
         a set is reused only after the frame two dispatches back was
         routed); a flush hop's to buffers of its own."""
-        loop = asyncio.get_running_loop()
-        if self.device.type != "cuda":
-            fut = loop.create_future()
-            fut.set_result({k: t.numpy().copy() for k, t in tensors.items()})
-            return fut
-        bufs = self._host_sets[self._host_turn] if frame else {}
-        hosts = {}
-        for name, t in tensors.items():
-            key = (name, tuple(t.shape), t.dtype)
-            if key not in bufs:
-                bufs[key] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            hosts[name] = bufs[key]
-            hosts[name].copy_(t, non_blocking=True)
-        if frame:
-            self._host_turn ^= 1
-        event = torch.cuda.Event()
-        event.record()
+        with self._span("engine.readback_issue"):
+            loop = asyncio.get_running_loop()
+            if self.device.type != "cuda":
+                fut = loop.create_future()
+                fut.set_result({k: t.numpy().copy() for k, t in tensors.items()})
+                return fut
+            bufs = self._host_sets[self._host_turn] if frame else {}
+            hosts = {}
+            for name, t in tensors.items():
+                key = (name, tuple(t.shape), t.dtype)
+                if key not in bufs:
+                    bufs[key] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                hosts[name] = bufs[key]
+                hosts[name].copy_(t, non_blocking=True)
+            if frame:
+                self._host_turn ^= 1
+            event = torch.cuda.Event()
+            event.record()
 
-        def wait():
-            event.synchronize()
-            return {k: h.numpy().copy() for k, h in hosts.items()}
+            def wait():
+                event.synchronize()
+                return {k: h.numpy().copy() for k, h in hosts.items()}
 
-        return loop.run_in_executor(self._readback_pool, wait)
+            return loop.run_in_executor(self._readback_pool, wait)
 
     # --------------------------------------------------------- routing
 
@@ -1007,34 +1078,42 @@ class OrpheusEngine:
         phase; a lane's hop reaches the consumer only when the host planner
         produced it from the routed tokens (a lane that stopped
         mid-dispatch emits nothing more)."""
-        pending_hops: List[tuple] = []
-        finished_audio: List[Request] = []
-        if firsts:
-            self._route_firsts(firsts, host["firsts"], pending_hops, finished_audio)
-        toks = host["toks"]
-        self.steps += toks.shape[0]
-        pcm, emit = host.get("pcm"), host.get("emit")
-        n_phases = 1 if pcm is None else pcm.shape[0]
-        rows_per = toks.shape[0] // n_phases
-        for ph in range(n_phases):
-            host_hops: set = set()
-            for step_row in toks[ph * rows_per:(ph + 1) * rows_per]:
+        with self._span("engine.route"):
+            pending_hops: List[tuple] = []
+            finished_audio: List[Request] = []
+            if firsts:
+                self._route_firsts(firsts, host["firsts"], pending_hops, finished_audio)
+            toks = host["toks"]
+            self.steps += toks.shape[0]
+            pcm, emit = host.get("pcm"), host.get("emit")
+            n_phases = 1 if pcm is None else pcm.shape[0]
+            rows_per = toks.shape[0] // n_phases
+            routed = 0
+            for ph in range(n_phases):
+                host_hops: set = set()
+                for step_row in toks[ph * rows_per:(ph + 1) * rows_per]:
+                    for slot, req in slot_map.items():
+                        if (req.state is not RequestState.DECODING
+                                or self._by_slot.get(slot) is not req):
+                            continue
+                        token = int(step_row[slot])
+                        if token < 0:
+                            continue
+                        routed += 1
+                        if self._route_token(slot, req, token, pending_hops, finished_audio):
+                            host_hops.add(slot)
+                if pcm is None:
+                    continue
                 for slot, req in slot_map.items():
-                    if (req.state is not RequestState.DECODING
-                            or self._by_slot.get(slot) is not req):
-                        continue
-                    token = int(step_row[slot])
-                    if token < 0:
-                        continue
-                    if self._route_token(slot, req, token, pending_hops, finished_audio):
-                        host_hops.add(slot)
-            if pcm is None:
-                continue
-            for slot, req in slot_map.items():
-                if (req.audio and emit[ph, slot] and slot in host_hops
-                        and req.state is not RequestState.CANCELLED):
-                    req.pcm_queue.put_nowait(pcm[ph, slot].tobytes())
-        self._finish_routing(pending_hops, finished_audio)
+                    if (req.audio and emit[ph, slot] and slot in host_hops
+                            and req.state is not RequestState.CANCELLED):
+                        req.pcm_queue.put_nowait(pcm[ph, slot].tobytes())
+                        if self.trace is not None:
+                            self.trace.request_phase(req, "request.first_hop")
+            self._finish_routing(pending_hops, finished_audio)
+            if self.trace is not None:
+                self.trace.note_frame(toks.shape[0] * self.ecfg.max_slots, routed,
+                                      host.get("stamps"))
 
     @torch.no_grad()
     def _run_audio_hops(self, pending: List[tuple]) -> None:
@@ -1065,28 +1144,35 @@ class OrpheusEngine:
         """Route dispatched flush-hop PCM, strictly in dispatch order; with
         ``force`` False, entries whose readback is still in flight are left
         for a later call so the dispatch cadence never stalls."""
-        fs = self._codec[1].frame_samples if self._codec else 0
-        while self._pending_audio:
-            entry = self._pending_audio[0]
-            if entry[0] == "eos":
+        with self._span("engine.flush_audio"):
+            fs = self._codec[1].frame_samples if self._codec else 0
+            while self._pending_audio:
+                entry = self._pending_audio[0]
+                if entry[0] == "eos":
+                    self._pending_audio.pop(0)
+                    if self.trace is not None:
+                        self.trace.request_end(entry[1])
+                    entry[1].pcm_queue.put_nowait(None)
+                    continue
+                _, fut, emits = entry
+                if not force and not fut.done():
+                    return
+                pcm = (await fut)["pcm"]
                 self._pending_audio.pop(0)
-                entry[1].pcm_queue.put_nowait(None)
-                continue
-            _, fut, emits = entry
-            if not force and not fut.done():
-                return
-            pcm = (await fut)["pcm"]
-            self._pending_audio.pop(0)
-            for slot, req, ws in emits:
-                if req.state is not RequestState.CANCELLED:
-                    req.pcm_queue.put_nowait(pcm[slot, ws * fs:(ws + 1) * fs].tobytes())
+                for slot, req, ws in emits:
+                    if req.state is not RequestState.CANCELLED:
+                        req.pcm_queue.put_nowait(pcm[slot, ws * fs:(ws + 1) * fs].tobytes())
+                        if self.trace is not None:
+                            self.trace.request_phase(req, "request.first_hop")
 
     # ------------------------------------------------------------- loop
 
     async def _settle(self, inflight) -> None:
         """Await a frame's (already issued) readback and route it."""
         slot_map, firsts, fut = inflight
-        self._process_frame(slot_map, firsts, await fut)
+        with self._span("engine.readback_wait"):
+            host = await fut
+        self._process_frame(slot_map, firsts, host)
 
     async def _drain(self, inflight):
         if inflight is not None:
@@ -1094,82 +1180,90 @@ class OrpheusEngine:
         return None
 
     async def _park(self) -> None:
-        self._wake.clear()
-        try:
-            await asyncio.wait_for(self._wake.wait(), timeout=0.5)
-        except asyncio.TimeoutError:
-            pass
+        with self._span("engine.park"):
+            self._wake.clear()
+            try:
+                await asyncio.wait_for(self._wake.wait(), timeout=0.5)
+            except asyncio.TimeoutError:
+                pass
+
+    def _admit_backlog(self) -> None:
+        """Admit the (agreed) backlog, up to the free slots."""
+        with self._span("engine.admit"):
+            deferred = []
+            for _ in range(self._agreed_pending):
+                req = self._pending.get_nowait()
+                cancelled = req.state is RequestState.CANCELLED
+                if cancelled and self._ctrl is None:
+                    continue
+                if self._free:
+                    self._guarded_admit(req)
+                    if cancelled and req.slot is not None:
+                        # on a mesh a slot is freed on every rank at once
+                        req.state = RequestState.CANCELLED
+                        self._cancel_slots.add(req.slot)
+                else:
+                    deferred.append(req)
+            rest = []
+            while not self._pending.empty():
+                rest.append(self._pending.get_nowait())
+            for req in deferred + rest:
+                self._pending.put_nowait(req)
+            self._agreed_pending = len(deferred)  # still waiting for a slot
 
     async def _run(self) -> None:
         # One frame in flight: dispatch frame N, enqueue its readback, run
         # at most one prefill round, then route frame N-1 while N runs.
         inflight = None  # (slot snapshot, firsts, readback future)
         while self._agree():
-            # admission takes the (agreed) backlog, up to the free slots
-            if self._free and self._agreed_pending:
-                deferred = []
-                for _ in range(self._agreed_pending):
-                    req = self._pending.get_nowait()
-                    cancelled = req.state is RequestState.CANCELLED
-                    if cancelled and self._ctrl is None:
-                        continue
-                    if self._free:
-                        self._guarded_admit(req)
-                        if cancelled and req.slot is not None:
-                            # on a mesh a slot is freed on every rank at once
-                            req.state = RequestState.CANCELLED
-                            self._cancel_slots.add(req.slot)
-                    else:
-                        deferred.append(req)
-                rest = []
-                while not self._pending.empty():
-                    rest.append(self._pending.get_nowait())
-                for req in deferred + rest:
-                    self._pending.put_nowait(req)
-                self._agreed_pending = len(deferred)  # still waiting for a slot
-            if not self._by_slot:
-                inflight = await self._drain(inflight)
-                if self._by_slot or not self._pending.empty():
-                    continue  # settling surfaced new work
-                self._flush_first_tokens()
-                await self._flush_audio()
-                await self._park()
-                continue
-            gate = self._backpressure_gate()
-            if gate is None:
-                inflight = await self._drain(inflight)
-                if self._prefill_jobs:
-                    # nothing decodable yet: keep admissions moving; the
-                    # first tokens ride the next frame's readback
-                    self._advance_prefill()
-                    await self._flush_audio()
-                    await asyncio.sleep(0)
-                    continue
-                # every live consumer is saturated: park until one drains
-                self._flush_first_tokens()
-                await self._flush_audio()
-                self._wake.clear()
-                if (self._backpressure_gate() is not None
-                        or not self._pending.empty() or self._closed):
-                    continue
-                await self._park()
-                continue
-            outs, slot_map = self._dispatch_frame(gate)
-            # firsts sampled before this frame ride its readback
-            firsts, self._pending_first = self._pending_first, []
-            names = ("toks", "pcm", "emit")[:len(outs)]
-            payload = dict(zip(names, outs))
-            if firsts:
-                payload["firsts"] = torch.cat([f[2] for f in firsts])
-            fut = self._readback(payload, frame=True)
-            # at most one prefill round rides behind each frame
-            self._advance_prefill()
-            # route the previous frame while this one runs
-            if inflight is not None:
-                await self._settle(inflight)
-            inflight = (slot_map, firsts, fut)
-            await self._flush_audio(force=False)
-            await asyncio.sleep(0)
+            with self._span("engine.turn"):
+                inflight = await self._turn(inflight)
         await self._drain(inflight)
         self._flush_first_tokens()
         await self._flush_audio()
+
+    async def _turn(self, inflight):
+        """One turn of the loop; returns the frame left in flight."""
+        if self._free and self._agreed_pending:
+            self._admit_backlog()
+        if not self._by_slot:
+            inflight = await self._drain(inflight)
+            if self._by_slot or not self._pending.empty():
+                return inflight  # settling surfaced new work
+            self._flush_first_tokens()
+            await self._flush_audio()
+            await self._park()
+            return inflight
+        gate = self._backpressure_gate()
+        if gate is None:
+            inflight = await self._drain(inflight)
+            if self._prefill_jobs:
+                # nothing decodable yet: keep admissions moving; the
+                # first tokens ride the next frame's readback
+                self._advance_prefill()
+                await self._flush_audio()
+                await asyncio.sleep(0)
+                return inflight
+            # every live consumer is saturated: park until one drains
+            self._flush_first_tokens()
+            await self._flush_audio()
+            self._wake.clear()
+            if (self._backpressure_gate() is not None
+                    or not self._pending.empty() or self._closed):
+                return inflight
+            await self._park()
+            return inflight
+        payload, slot_map = self._dispatch_frame(gate)
+        # firsts sampled before this frame ride its readback
+        firsts, self._pending_first = self._pending_first, []
+        if firsts:
+            payload["firsts"] = torch.cat([f[2] for f in firsts])
+        fut = self._readback(payload, frame=True)
+        # at most one prefill round rides behind each frame
+        self._advance_prefill()
+        # route the previous frame while this one runs
+        if inflight is not None:
+            await self._settle(inflight)
+        await self._flush_audio(force=False)
+        await asyncio.sleep(0)
+        return (slot_map, firsts, fut)

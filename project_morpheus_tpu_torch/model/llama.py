@@ -320,6 +320,7 @@ def llama_decode_step(
     attn_impl: str = "dense",  # "dense" | "kernel" (the CUDA flash kernels)
     bucket: Optional[int] = None,  # dense attention reads cache[:bucket]
     tp=None,                # tensor parallelism (module docstring)
+    stamp=None,             # stamp(mark): the engine's trace (engine/trace.py)
 ) -> torch.Tensor:
     """One decode step for every slot: writes each token's K/V at
     ``lengths[b]`` and attends positions ``<= lengths[b]``.  Returns fp32
@@ -328,6 +329,8 @@ def llama_decode_step(
     Three attention branches, as in the JAX step: ``kernel`` (the slot
     int8 kernel on an int8 cache, the layered kernel on a bf16 one), dense
     int8 (int8 q.k and requantised probs, exact integer dots), dense bf16.
+    ``stamp``, where given, marks each layer's attention branch in stream
+    order: ``"attn_in"`` before it, ``"attn_out"`` after it.
     """
     B = tokens.shape[0]
     tp = as_tp(tp)
@@ -363,6 +366,8 @@ def llama_decode_step(
             cache["k"][i, slots, :, pos_l] = k[:, 0].to(cache["k"].dtype)
             cache["v"][i, slots, :, pos_l] = v[:, 0].to(cache["v"].dtype)
 
+        if stamp is not None:
+            stamp("attn_in")
         if attn_impl == "kernel":
             q0 = q[:, 0].contiguous()
             if quant:
@@ -400,6 +405,8 @@ def llama_decode_step(
             attn = torch.einsum(
                 "bkgs,bksd->bkgd", probs.to(dt).float(), v_s.to(dt).float()
             ).reshape(B, 1, cfg.num_heads * HD).to(dt)
+        if stamp is not None:
+            stamp("attn_out")
         x = x + tp.reduce(matmul_maybe_quant(attn, wl["wo"]))
         h = rmsnorm(x, wl["ln2"], cfg.rms_eps)
         x = x + tp.reduce(_mlp(tp.enter(h), wl, cfg))

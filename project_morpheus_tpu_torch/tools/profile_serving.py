@@ -10,10 +10,11 @@ round captured as a CUDA graph), serves one short warm-up request, then serves `
 tokens each:
 
 1. unprofiled: wall time, ms per decode step, each request's time to
-   first audio (TTFA), and host time per engine phase (frame dispatch,
-   i.e. a graph replay and its readback copies, prefill rounds, routing),
-   and each prefill round's host and device time (``round_timer``; a round
-   is a graph replay too); then a burst of four ``BURST_PROMPT`` requests
+   first audio (TTFA), and host time per engine phase from the engine's
+   trace spans (``engine.dispatch``: staging the gate and a graph replay;
+   ``engine.prefill_round``; ``engine.route``), and each prefill round's
+   host and device time (``round_timer``; a round is a graph replay too);
+   then a burst of four ``BURST_PROMPT`` requests
    (J-batched prefill rounds) and their TTFA;
 2. under ``torch.profiler`` tracing the card only (``device_trace``): the
    device's busy share of the window (the union of its kernels' spans), and
@@ -36,7 +37,6 @@ It needs a CUDA card and fails without one.
 from __future__ import annotations
 
 import asyncio
-import collections
 import contextlib
 import os
 import subprocess
@@ -127,52 +127,50 @@ def device_trace():
 
 
 @contextlib.contextmanager
-def round_timer(engine):
-    """Time each prefill round ``engine`` runs inside the block: the yielded
-    dict is filled on exit with ``rounds``, ``host_s`` (the host's time in
-    ``_prefill_round``: staging the inputs, a graph replay or the eager
-    launches, the first tokens' copy) and ``device_s`` (CUDA events on the
-    stream before and after each round: its device time, copies included,
-    once the work ahead of it has run)."""
-    import torch
-
-    fn = engine._prefill_round
-    stats = {"rounds": 0, "host_s": 0.0, "device_s": 0.0}
-    marks = []
-
-    def timed(*a, **k):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        try:
-            return fn(*a, **k)
-        finally:
-            end.record()
-            stats["host_s"] += time.perf_counter() - t0
-            stats["rounds"] += 1
-            marks.append((start, end))
-
-    engine._prefill_round = timed
+def engine_spans(engine):
+    """The engine's trace (``engine/trace.py``) over the block: turned on
+    for it if it was off (and off again after); the yielded list is filled
+    on exit with the spans recorded inside the block."""
+    was_on = engine.trace is not None
+    trace = engine.start_trace()
+    first = len(trace.spans)
+    spans: list = []
     try:
-        yield stats
+        yield spans
     finally:
-        del engine._prefill_round  # the class's method again
-        torch.cuda.synchronize()
-        stats["device_s"] = sum(s.elapsed_time(e) for s, e in marks) / 1e3
+        spans.extend(trace.spans[first:])
+        if not was_on:
+            engine.stop_trace()
 
 
-def _wrap(engine, name, totals):
-    fn = getattr(engine, name)
+@contextlib.contextmanager
+def round_timer(engine):
+    """Time each prefill round ``engine`` runs inside the block, from its
+    ``engine.prefill_round`` spans: the yielded dict is filled on exit with
+    ``rounds``, ``host_s`` (the host's time in the round: staging the
+    inputs, a graph replay or the eager launches, the first tokens' copy)
+    and ``device_s`` (the span's CUDA events on the stream before and after
+    the round: its device time, copies included, once the work ahead of it
+    has run; 0 off the card)."""
+    from ..engine.trace import device_seconds
 
-    def timed(*a, **k):
-        t0 = time.perf_counter()
-        try:
-            return fn(*a, **k)
-        finally:
-            totals[name][0] += time.perf_counter() - t0
-            totals[name][1] += 1
+    stats = {"rounds": 0, "host_s": 0.0, "device_s": 0.0}
+    with engine_spans(engine) as spans:
+        yield stats
+    rounds = [s for s in spans if s.name == "engine.prefill_round"]
+    stats["rounds"] = len(rounds)
+    stats["host_s"] = sum(s.end_ns - s.start_ns for s in rounds) / 1e9
+    stats["device_s"] = device_seconds(rounds)
 
-    setattr(engine, name, timed)
+
+def host_totals(spans, names) -> dict:
+    """{name: [host seconds, spans]} of the spans of each of ``names``."""
+    totals = {name: [0.0, 0] for name in names}
+    for s in spans:
+        if s.name in totals:
+            totals[s.name][0] += (s.end_ns - s.start_ns) / 1e9
+            totals[s.name][1] += 1
+    return totals
 
 
 async def _serve(prompts, max_tokens):
@@ -236,16 +234,14 @@ async def _main() -> None:
     print(f"warmup: {n} programs in {secs:.2f} s, {eng.programs.captures} CUDA graphs, graph "
           f"pool {eng.programs.pool_bytes() / 2**30:.3f} GiB")
     await _serve(["Warm up."], 14)
-    totals = collections.defaultdict(lambda: [0.0, 0])
-    for name in ("_dispatch_frame", "_advance_prefill", "_process_frame"):
-        _wrap(eng, name, totals)
     steps0 = eng.steps
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with round_timer(eng) as rounds:
+    with engine_spans(eng) as spans, round_timer(eng) as rounds:
         pcm = await _serve(PROMPTS, TOKENS_PER_REQUEST)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    totals = host_totals(spans, ("engine.dispatch", "engine.prefill_round", "engine.route"))
     steps = eng.steps - steps0
     print(f"unprofiled: {wall:.3f} s wall, {steps} decode steps, {sum(b for b, _ in pcm)} PCM "
           f"bytes, {wall / max(steps, 1) * 1e3:.2f} ms per step over the window; TTFA s "

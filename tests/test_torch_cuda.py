@@ -228,6 +228,48 @@ def test_int8_gemv_same_bits_eager_and_replayed(cuda, k_major, K, N):
 
 
 @pytest.mark.requires_cuda
+def test_traced_frame_graph_stamps_its_stages(cuda):
+    """A frame program captured with the engine's trace on writes
+    increasing timestamps at every replay, whose stages sum to within 2%
+    of CUDA events around the replay; one captured with the trace off
+    launches no stamp and the same kernels otherwise, and returns the same
+    outputs, without the marks."""
+    import numpy as np
+
+    from project_morpheus_tpu_torch.engine import trace as tr
+
+    cfg = gc.small_config(num_layers=8)
+    off, on = gc.small_engine(cuda, True, cfg=cfg), gc.small_engine(cuda, True, cfg=cfg)
+    on.start_trace()
+    for eng in (off, on):
+        for _ in range(2):  # the capture, then a first replay
+            eng._run_program(128, 1, False)
+    (t_off,), (t_on,) = (e.programs._graphs.values() for e in (off, on))
+    stamps = [t.get("stamp", 0) for t in (t_off[2][-1], t_on[2][-1])]
+    assert stamps[0] == 0 and stamps[1] == 7 * (4 + 2 * cfg.num_layers) + 2
+    assert t_off[2][:-1] == t_on[2][:-1]
+    assert len(t_off[1]) == 1 and len(t_on[1]) == 2
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        # the card busy while the graph is launched, as two frames in flight
+        # keep it in serving: the events then time the graph's work, not
+        # its submission to an idle card
+        torch.cuda._sleep(50_000_000)
+        ev[0].record()
+        outs = on._run_program(128, 1, False)
+        ev[1].record()
+        torch.cuda.synchronize()
+        marks = outs[-1].cpu().numpy()
+        assert np.all(np.diff(marks[:, 1]) >= 0) and marks[-1, 1] > marks[0, 1]
+        st = tr.stage_ns(marks)
+        total = sum(st[s] for s in tr.STAGES)
+        assert total == marks[-1, 1] - marks[0, 1] and st["attention"] > 0
+        events_ns = ev[0].elapsed_time(ev[1]) * 1e6
+        assert abs(total - events_ns) <= 0.02 * events_ns, (total, events_ns)
+    assert torch.equal(off._run_program(128, 1, False)[0], outs[0])
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("temperature", [0.0, 0.9])
 def test_graph_replay_matches_eager(cuda, temperature):
     """The same seeded requests give the same tokens whether the frame
