@@ -13,7 +13,10 @@ Phases, each raising on failure (exit code 1, no result lines):
    all-live shapes with ``tools/time_kernels.py``: device time per call
    from a CUDA graph of 28 calls, the wrapper's host time per call, the
    bound, and the twin's and (where one exists) the PyTorch library call's
-   time; then check them at the Orpheus-1B head shape (HD=64, G=4);
+   time; then check them at the Orpheus-1B head shape (HD=64, G=4), and
+   at the benchmark trunks' shapes (SmolLM2-1.7B's (64, 1) and Mistral-7B's
+   (128, 4), S = 8192) and their cells' live lengths, with garbage past
+   each frontier, each timed beside its byte bound;
    then the int8 chunk-prefill attention at a tensor-parallel rank's kv
    heads (one: Orpheus-3B and 1B at tp = 8; and 2, 4, 8) against its twin;
    then the int8 GEMV at the five 3B weight shapes (wqkv, wo, wgu, wd over
@@ -369,6 +372,75 @@ def phase_1b_heads(torch, da, dev) -> float:
         if not bool((got[0] == 0).all()):
             raise AssertionError(f"{what} at HD=64, G=4: a slot of length 0 is not zeros")
     log(f"kernels at the 1B head shape (HD=64, G=4): max_abs_err {err:.3e}")
+    return err
+
+
+def phase_trunk_heads(torch, da, dev) -> float:
+    """The decode-attention kernels at the benchmark trunks' shapes
+    (``tk.TRUNK_DIMS``: SmolLM2-1.7B's (HD, G) = (64, 1), Mistral-7B's
+    (128, 4), S = 8192) at their cells' live lengths (``tk.TRUNK_SHAPES``):
+    the layered kernel over a bf16 cache (the main path), then over an
+    int8 one, then the slot kernel, each against its twin on the same
+    inputs with garbage past every frontier of the last layer, and timed
+    (a CUDA graph of calls over all the layers) beside its byte bound."""
+    from project_morpheus_tpu_torch.tools import time_kernels as tk
+
+    err = 0.0
+    for model, (L, B, S, KV, HD, H) in tk.TRUNK_DIMS.items():
+        g = torch.Generator(device=dev).manual_seed(2)
+        q = torch.randn(B, H, HD, generator=g, device=dev).to(torch.bfloat16)
+        for kind in ("layered bf16", "layered int8", "int8 slots"):
+            if kind == "layered bf16":
+                k = torch.randn(L, B, KV, S, HD, generator=g, device=dev).to(torch.bfloat16)
+                v = torch.randn(L, B, KV, S, HD, generator=g, device=dev).to(torch.bfloat16)
+                sc = (None,)
+                refill = lambda: (k[-1].normal_(generator=g), v[-1].normal_(generator=g))  # noqa: E731
+                run = lambda lt, i: da.decode_attention_layered(q, k, v, lt, i)  # noqa: E731
+                twin = lambda lt, i: da.decode_attention_layered_plain(q.float(), k, v, lt, i)  # noqa: E731
+            else:
+                shape = (L, B, KV, S, HD) if kind == "layered int8" else (L, B, S, KV * HD)
+                k = torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+                v = torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+                refill = lambda: (k[-1].random_(-127, 128, generator=g),  # noqa: E731
+                                  v[-1].random_(-127, 128, generator=g))
+                if kind == "layered int8":
+                    sc = tuple(torch.rand(L, B, KV, S, generator=g, device=dev) * 0.02 + 0.002
+                               for _ in "kv")
+                    run = lambda lt, i: da.decode_attention_layered(  # noqa: E731
+                        q, k, v, lt, i, k_scale=sc[0], v_scale=sc[1])
+                    twin = lambda lt, i: da.decode_attention_layered_plain(  # noqa: E731
+                        q.float(), k, v, lt, i, sc[0], sc[1])
+                else:
+                    sc = (torch.rand(L, B, S, 2 * KV, generator=g, device=dev) * 0.02 + 0.002,)
+                    run = lambda lt, i: da.decode_attention_int8_slots(  # noqa: E731
+                        q, k, v, sc[0], lt, i)
+                    twin = lambda lt, i: da.decode_attention_int8_slots_plain(  # noqa: E731
+                        q.float(), k, v, sc[0], lt, i)
+            quant = kind != "layered bf16"
+            for name, lens in tk.TRUNK_SHAPES[model].items():
+                lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+                for b, n in enumerate(lens):  # large finite values past each frontier
+                    if kind == "int8 slots":
+                        k[-1, b, n:], v[-1, b, n:], sc[0][-1, b, n:] = 127, -127, 1e3
+                    elif quant:
+                        k[-1, b, :, n:], v[-1, b, :, n:] = 127, -127
+                        sc[0][-1, b, :, n:], sc[1][-1, b, :, n:] = 1e3, 1e3
+                    else:
+                        k[-1, b, :, n:], v[-1, b, :, n:] = 1e4, -1e4
+                got, want = run(lt, L - 1), twin(lt, L - 1)
+                torch.cuda.synchronize()
+                err = max(err, check_close(got, want, f"{kind} at {model}, {name}"))
+                refill()
+                for x in sc[:2 if quant else 0]:
+                    x[-1].uniform_(0.002, 0.022, generator=g)
+                t = tk.timings(lambda i: run(lt, i % L))
+                bound_ms = tk.decode_bytes(lens, KV, HD, S, H, quant) / 3.35e9
+                log(f"  {kind} at {model} [{name}, {sum(lens)} live]: device "
+                    f"{t['device_ms']:.4f} ms/call, host {t['host_us']:.1f} us/call, bound "
+                    f"{bound_ms:.4f} ms by bytes ({100 * bound_ms / t['device_ms']:.1f}%)")
+            del k, v, sc
+            torch.cuda.empty_cache()
+    log(f"kernels at the trunks' head shapes {sorted(tk.TRUNK_DIMS)}: max_abs_err {err:.3e}")
     return err
 
 
@@ -2756,6 +2828,7 @@ def run(card: str) -> None:
 
     records = phase_kernels(torch, da, dev)
     phase_1b_heads(torch, da, dev)
+    phase_trunk_heads(torch, da, dev)
     phase_prefill_kv_heads(torch, dev)
     records.append(phase_gemv(torch, dev))
     records.append(phase_prefill_kernel(torch, dev))

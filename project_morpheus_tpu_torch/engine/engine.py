@@ -102,13 +102,15 @@ class EngineConfig:
     # decode context buckets: dense attention reads only the bucket prefix
     context_buckets: Tuple[int, ...] = (256, 512, 1024, 2048, 4096, 8192)
     cache_dtype: str = "bfloat16"
-    # "auto": on the card, int8 caches at buckets >= pallas_min_bucket use
-    # the CUDA slot kernel, everything else the dense bucketed attention;
-    # "kernel" / "dense" force one path (the JAX package names the kernel
-    # path "pallas")
+    # "auto": on one card (no mesh), bf16 caches at every bucket use the
+    # CUDA layered flash-decode kernel, int8 caches at buckets >=
+    # pallas_min_bucket the CUDA slot kernel (each raises for a (head_dim,
+    # H // KV) it does not take); everything else the dense bucketed
+    # attention.  "kernel" / "dense" force one path (the JAX package names
+    # the kernel path "pallas")
     attn_impl: str = "auto"
-    # smallest context bucket at which "auto" selects the kernel (the
-    # field keeps the JAX package's name)
+    # smallest context bucket at which "auto" selects the kernel for an
+    # int8 cache (the field keeps the JAX package's name)
     pallas_min_bucket: int = 2048
     # int8 activations in the chunk-prefill projections/MLP (quantized
     # weights only)
@@ -825,17 +827,23 @@ class OrpheusEngine:
         return bool(vec[1])
 
     def _attn_for(self, bucket: Optional[int]) -> str:
-        """Resolve attn_impl="auto": on the card, int8 caches at long
-        context take the slot kernel (its bytes follow each slot's live
-        length); everything else, and every mesh engine (as in JAX), the
-        dense bucketed attention.  An explicit "kernel" on a mesh runs the
-        slot kernel on the rank's own heads."""
+        """Resolve attn_impl="auto".  On one card (CUDA, no mesh) the
+        kernels' bytes follow each slot's live length, where the dense
+        branch reads every slot over the whole bucket: a bf16 cache takes
+        the layered kernel at every bucket, an int8 cache the slot kernel
+        at buckets >= ``pallas_min_bucket`` (as in JAX).  The shape plays no
+        part: a (head_dim, H // KV) the kernels do not take raises in their
+        wrappers (``flash_decode_supported``).  Everything else, and every
+        mesh engine (as in JAX), takes the dense bucketed attention.  An
+        explicit "kernel" on a mesh runs the kernel on the rank's own
+        heads."""
         if self.attn_impl != "auto":
             return self.attn_impl
-        if (self.device.type == "cuda"
-                and self.mesh is None
-                and self.ecfg.cache_dtype == "int8"
-                and (bucket or self.ecfg.max_seq_len) >= self.ecfg.pallas_min_bucket):
+        cache = self.ecfg.cache_dtype
+        if (self.device.type == "cuda" and self.mesh is None
+                and (cache == "bfloat16"
+                     or (cache == "int8"
+                         and (bucket or self.ecfg.max_seq_len) >= self.ecfg.pallas_min_bucket))):
             return "kernel"
         return "dense"
 
@@ -992,6 +1000,8 @@ class OrpheusEngine:
             with self._span("engine.stage_inputs"):
                 self._gate_in.stage((gate,))
             outs = self._run_program(bucket, k, audio)
+            if self.trace is not None:
+                self.trace.counters[f"attn_{self._attn_for(bucket)}_frames"] += k
             names = ("toks", "pcm", "emit") if audio else ("toks",)
             return dict(zip(names + ("stamps",), outs)), dict(self._by_slot)
 

@@ -31,7 +31,10 @@ everything stays in memory (nothing is written or printed):
   bookkeeping (the step's state updates, stop and budget, the code ring)
   and the SNAC hop.
 - **Counters**: ``lanes_decoded`` (steps x ``max_slots`` of each routed
-  frame) and ``lanes_emitted`` (the tokens routed from them).
+  frame) and ``lanes_emitted`` (the tokens routed from them);
+  ``attn_kernel_frames`` and ``attn_dense_frames``, the frames dispatched
+  whose decode attention resolved to the CUDA kernels or to the dense
+  branch (``OrpheusEngine._attn_for``).
 """
 from __future__ import annotations
 

@@ -28,7 +28,7 @@ extern "C" int mp_decode_attention_int8_slots(
     void* out,            // (B, H, HD) bf16
     void* m_part, void* l_part, void* acc_part,
     int B, int S, int KV, int H, int HD, int n_splits, int split_len,
-    float sm_scale, void* stream) {
+    int blocks_per_sm, float sm_scale, void* stream) {
   mp::Args a;
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.k = k;
@@ -53,5 +53,5 @@ extern "C" int mp_decode_attention_int8_slots(
   a.split_len = split_len;
   a.sm_scale = sm_scale;
   return mp::launch_flash_decode<int8_t, true>(
-      a, B, HD, static_cast<cudaStream_t>(stream));
+      a, B, HD, blocks_per_sm, static_cast<cudaStream_t>(stream));
 }

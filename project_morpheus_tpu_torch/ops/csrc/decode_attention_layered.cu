@@ -26,7 +26,7 @@ extern "C" int mp_decode_attention_layered(
     void* out,            // (B, H, HD) bf16
     void* m_part, void* l_part, void* acc_part,
     int B, int S, int KV, int H, int HD, int quant, int n_splits,
-    int split_len, float sm_scale, void* stream) {
+    int split_len, int blocks_per_sm, float sm_scale, void* stream) {
   mp::Args a;
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.k = k;
@@ -51,6 +51,6 @@ extern "C" int mp_decode_attention_layered(
   a.split_len = split_len;
   a.sm_scale = sm_scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (quant) return mp::launch_flash_decode<int8_t, true>(a, B, HD, st);
-  return mp::launch_flash_decode<__nv_bfloat16, false>(a, B, HD, st);
+  if (quant) return mp::launch_flash_decode<int8_t, true>(a, B, HD, blocks_per_sm, st);
+  return mp::launch_flash_decode<__nv_bfloat16, false>(a, B, HD, blocks_per_sm, st);
 }

@@ -15,10 +15,14 @@
 // keeps the instruction count well under that byte time:
 //
 // - Grid (kv head, split, slot), kv head fastest: each block streams up to
-//   split_len positions of one slot for the G query rows of one kv head.  The
-//   KV blocks of one (split, slot) run side by side, so in the flat layout
-//   they read each 1 KB position row and its 64 B scale row together.  Blocks
-//   at or past the live length exit at once: bytes follow live lengths.
+//   split_len positions of one slot for the G query rows of one kv head.
+//   Blocks at or past the live length exit at once: bytes follow live
+//   lengths.  But each still costs a launch, so the grid is capped at a
+//   few blocks an SM (launch_split), and past the cap a block strides over
+//   several live splits of its slot: at S = 8,192 the SmolLM2 chat shape
+//   otherwise launched 8,192 blocks for ~600 live splits.  The KV blocks
+//   of one (split, slot) run side by side, so in the flat layout they read
+//   each 1 KB position row and its 64 B scale row together.
 // - A kStages-deep shared-memory ring of kTile-position tiles (K, V, scales),
 //   filled with 16-byte cp.async copies that overlap the arithmetic.  Rows
 //   past the live frontier are zero-filled, never read: no read leaves
@@ -56,6 +60,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace mp {
 // Internal linkage: every source that includes this header builds into a
@@ -198,27 +204,16 @@ __device__ __forceinline__ void load_v(const unsigned char* p, float (&out)[EPL]
   }
 }
 
+// One split of one (kv head h, slot b): positions [split * split_len, end)
+// of the slot's len live ones, for the G query rows of the kv head.
 template <typename T, int HD, int G, bool QUANT>
-__global__ void __launch_bounds__(kThreads)
-flash_decode_split(const Args a) {
+__device__ __forceinline__ void attend_split(const Args& a, int h, int split, int b, int len) {
   using Ge = Geom<T, HD, QUANT>;
   constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int EPL = Ge::kEpl;
-  static_assert(G >= 1 && G <= 4, "query rows share one padded N = 8 column group");
   extern __shared__ __align__(16) unsigned char smem[];
 
-  const int h = blockIdx.x, split = blockIdx.y, b = blockIdx.z;
-  // let the merge grid be scheduled now; it waits for this grid to finish
-  asm volatile("griddepcontrol.launch_dependents;\n" ::);
-  const int len = min(a.lengths[b], a.S);  // never past the slot's capacity
   const int start = split * a.split_len;
-  if (start >= len) {  // past the live frontier: no bytes read
-    if (len == 0 && split == 0) {  // a slot of length 0 attends nothing: zeros
-      for (int i = threadIdx.x; i < G * HD; i += kThreads)
-        a.out[((long long)b * a.H + (long long)h * G) * HD + i] = __float2bfloat16(0.f);
-    }
-    return;
-  }
   const int end = min(start + a.split_len, len);
   const int n_tiles = (end - start + kTile - 1) / kTile;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -441,6 +436,32 @@ flash_decode_split(const Args a) {
   }
 }
 
+// Block (kv head, y, slot) attends the slot's live splits y, y + gridDim.y,
+// ...; gridDim.y is set by the launch (launch_split).  A block past the live
+// frontier exits after one multiply and compare: on the H100 a division on
+// that path cost ~0.9 us a call where one block fits an SM.
+template <typename T, int HD, int G, bool QUANT>
+__global__ void __launch_bounds__(kThreads)
+flash_decode_split(const Args a) {
+  static_assert(G >= 1 && G <= 4, "query rows share one padded N = 8 column group");
+  const int h = blockIdx.x, b = blockIdx.z;
+  // let the merge grid be scheduled now; it waits for this grid to finish
+  asm volatile("griddepcontrol.launch_dependents;\n" ::);
+  const int len = min(a.lengths[b], a.S);  // never past the slot's capacity
+  int split = blockIdx.y;
+  if (split * a.split_len >= len) {  // past the live frontier: no bytes read
+    if (len == 0 && split == 0) {  // a slot of length 0 attends nothing: zeros
+      for (int i = threadIdx.x; i < G * HD; i += kThreads)
+        a.out[((long long)b * a.H + (long long)h * G) * HD + i] = __float2bfloat16(0.f);
+    }
+    return;
+  }
+  for (; split * a.split_len < len; split += gridDim.y) {
+    attend_split<T, HD, G, QUANT>(a, h, split, b, len);
+    __syncthreads();  // the next split's ring overwrites the warps' merge
+  }
+}
+
 // Merge the live splits of one query row: block (b * H + head).  A slot
 // with one live split wrote its output from the split kernel, and a slot of
 // length 0 its zeros; their blocks exit.  Splits past the live frontier
@@ -520,16 +541,26 @@ __global__ void __launch_bounds__(kThreads) flash_decode_merge(const Args a) {
 }
 
 template <typename T, int HD, int G, bool QUANT>
-int launch_split(const Args& a, int B, cudaStream_t stream) {
+int launch_split(const Args& a, int B, int blocks_per_sm, cudaStream_t stream) {
   constexpr int smem = Geom<T, HD, QUANT>::kSmem;
-  static bool sized = false;  // set once, before any graph capture may run
-  if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_decode_split<T, HD, G, QUANT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const auto kernel = flash_decode_split<T, HD, G, QUANT>;
+  static int sms = 0;  // set once, before any graph capture may run
+  if (sms == 0) {
+    int dev = 0, n = 0;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return static_cast<int>(err);
-    sized = true;
+    sms = n;
   }
-  flash_decode_split<T, HD, G, QUANT><<<dim3(a.KV, a.n_splits, B), kThreads, smem, stream>>>(a);
+  // A block per split of the capacity, as long as the grid stays within
+  // blocks_per_sm blocks an SM: every block costs a launch, also one past
+  // its slot's live length that exits at once.  Past that, each (kv head,
+  // slot) gets fewer blocks, each striding over the slot's live splits.
+  const int pairs = B * a.KV;
+  const int ys = std::max(1, std::min(a.n_splits, (blocks_per_sm * sms + pairs - 1) / pairs));
+  kernel<<<dim3(a.KV, ys, B), kThreads, smem, stream>>>(a);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // programmatic dependent launch: the merge's blocks are resident, waiting,
@@ -548,16 +579,30 @@ int launch_split(const Args& a, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shapes instantiated: (HD, G) = (128, 3) is Orpheus-3B (H=24, KV=8),
-// (64, 4) Orpheus-1B (H=32, KV=8).  Returns -1 for any other shape, -2 for a
-// split length that is not a whole number of tiles, else the
-// cudaGetLastError() of the two launches.
+template <typename T, int HD, bool QUANT>
+int launch_group(const Args& a, int B, int G, int blocks_per_sm, cudaStream_t stream) {
+  switch (G) {
+    case 1: return launch_split<T, HD, 1, QUANT>(a, B, blocks_per_sm, stream);
+    case 2: return launch_split<T, HD, 2, QUANT>(a, B, blocks_per_sm, stream);
+    case 3: return launch_split<T, HD, 3, QUANT>(a, B, blocks_per_sm, stream);
+    case 4: return launch_split<T, HD, 4, QUANT>(a, B, blocks_per_sm, stream);
+    default: return -1;
+  }
+}
+
+// Instantiated for every head dim of 64 or 128 and every GQA group of 1 to
+// 4 query heads a kv head (ops/decode_attention.py: flash_decode_supported;
+// Orpheus-3B is (128, 3), Orpheus-1B (64, 4), Mistral-7B (128, 4),
+// SmolLM2-1.7B (64, 1)).  Returns -1 for any other shape, -2 for a split
+// length that is not a whole number of tiles, else the cudaGetLastError()
+// of the two launches.
 template <typename T, bool QUANT>
-int launch_flash_decode(const Args& a, int B, int HD, cudaStream_t stream) {
+int launch_flash_decode(const Args& a, int B, int HD, int blocks_per_sm,
+                        cudaStream_t stream) {
   const int G = a.H / a.KV;
   if (a.split_len <= 0 || a.split_len % kTile != 0) return -2;
-  if (HD == 128 && G == 3) return launch_split<T, 128, 3, QUANT>(a, B, stream);
-  if (HD == 64 && G == 4) return launch_split<T, 64, 4, QUANT>(a, B, stream);
+  if (HD == 64) return launch_group<T, 64, QUANT>(a, B, G, blocks_per_sm, stream);
+  if (HD == 128) return launch_group<T, 128, QUANT>(a, B, G, blocks_per_sm, stream);
   return -1;
 }
 

@@ -27,7 +27,9 @@ sheet's 3.35 TB/s.  Design against that bound: a grid of (kv head, split,
 slot) blocks, each streaming up to ``SPLIT_LEN`` positions of one slot
 through a shared-memory ring of cp.async tiles for the G query rows of one
 kv head, scores on tensor cores, blocks past a slot's live length exiting
-at once; a second small kernel merges the splits (see
+at once, the grid capped at ``SPLIT_BLOCKS_PER_SM`` blocks an SM (past
+that a block strides over its slot's live splits); a second small kernel
+merges the splits (see
 ``csrc/flash_decode.cuh``).  Both kernels attend ``min(lengths[b], S)``
 positions, as the twins do.
 
@@ -50,6 +52,19 @@ SPLIT_LEN = 512
 
 # kernel launches per wrapper (never counts a plain-twin call)
 LAUNCHES = {"decode_attention_layered": 0, "decode_attention_int8_slots": 0}
+
+# the most blocks an SM a call's split grid holds: a block past its slot's
+# live length exits at once but still costs a launch, so past this count a
+# block strides over several live splits of its slot
+SPLIT_BLOCKS_PER_SM = 8
+
+
+def flash_decode_supported(head_dim: int, group: int) -> bool:
+    """Whether the CUDA kernels take queries of ``head_dim`` in GQA groups
+    of ``group`` query heads a kv head: head dims 64 and 128, groups of 1
+    to 4, as ``launch_flash_decode`` in csrc/flash_decode.cuh instantiates
+    them (the twins take any shape)."""
+    return head_dim in (64, 128) and 1 <= group <= 4
 
 
 def reset_launch_counts() -> None:
@@ -150,6 +165,9 @@ def _check_common(q, lengths, B, KV):
     _require(q.is_contiguous(), "q must be contiguous")
     _require(q.shape[0] == B, "q and cache disagree on the slot count")
     _require(q.shape[1] % KV == 0, "query heads must be a multiple of kv heads")
+    _require(flash_decode_supported(q.shape[2], q.shape[1] // KV),
+             f"no kernel for (head_dim, group) = ({q.shape[2]}, {q.shape[1] // KV}): "
+             "the kernels take head dims 64 and 128 and groups of 1 to 4")
     _require(lengths.dtype == torch.int32 and lengths.shape == (B,),
              "lengths must be int32 of shape (B,)")
     _require(lengths.is_contiguous(), "lengths must be contiguous")
@@ -173,8 +191,8 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # pointers: q k v [k_scale v_scale | scale] lengths out m l acc; ints; scale; stream
-    "mp_decode_attention_layered": [_P] * 10 + [_I] * 8 + [_F, _P],
-    "mp_decode_attention_int8_slots": [_P] * 9 + [_I] * 7 + [_F, _P],
+    "mp_decode_attention_layered": [_P] * 10 + [_I] * 9 + [_F, _P],
+    "mp_decode_attention_int8_slots": [_P] * 9 + [_I] * 8 + [_F, _P],
 }
 
 
@@ -231,7 +249,7 @@ def decode_attention_layered(
             _ptr(v_scale[layer] if quant else None),
             _ptr(lengths), _ptr(out), _ptr(m), _ptr(l), _ptr(acc),
             B, S, KV, q.shape[1],
-            HD, int(quant), n_splits, SPLIT_LEN, HD**-0.5, stream,
+            HD, int(quant), n_splits, SPLIT_LEN, SPLIT_BLOCKS_PER_SM, HD**-0.5, stream,
         )
     _raise_on(lib, status, "decode_attention_layered")
     LAUNCHES["decode_attention_layered"] += 1
@@ -285,7 +303,7 @@ def decode_attention_int8_slots(
             _ptr(q), _ptr(k_cache[layer]), _ptr(v_cache[layer]), _ptr(kv_scale[layer]),
             _ptr(lengths), _ptr(out), _ptr(m), _ptr(l), _ptr(acc),
             B, S, KV, q.shape[1],
-            HD, n_splits, SPLIT_LEN, HD**-0.5, stream,
+            HD, n_splits, SPLIT_LEN, SPLIT_BLOCKS_PER_SM, HD**-0.5, stream,
         )
     _raise_on(lib, status, "decode_attention_int8_slots")
     LAUNCHES["decode_attention_int8_slots"] += 1

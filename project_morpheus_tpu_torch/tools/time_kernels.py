@@ -18,7 +18,10 @@ G=3) and two sets of live lengths (``SHAPES``), times each kernel three ways:
   ``host_us`` exceeds ``device_ms``.
 
 and, for the layered kernel, ``scaled_dot_product_attention`` on the same
-inputs as a yardstick (graph-timed the same way; the port never calls it).
+inputs as a yardstick (graph-timed the same way; the port never calls it),
+each beside its byte bound (``decode_bytes`` at 3.35 TB/s); then the
+layered kernel the same way at the benchmark trunks' shapes
+(``TRUNK_DIMS``) and their cells' live lengths (``TRUNK_SHAPES``).
 ``PREFILL_SHAPES`` and the ``prefill_*`` helpers give the chunk-prefill
 attention's inputs, its bytes and causal operations, and its SDPA
 yardstick, timed the same way (``chip_smoke.py`` phase 2); with the
@@ -71,6 +74,39 @@ SHAPES = {
 }
 GRAPH_CALLS = 28
 REPLAYS = 10
+
+# the benchmark trunks' decode attention (a bf16 cache: the layered
+# kernel), (L, B, S, KV, HD, H), at the live lengths of one decode step in
+# each of their cells: chat ~11 streams at 60-700 positions, clone 12 at
+# 1,400-2,800, read 8 readers at 60-730 (PERF.md sections 4-5), idle slots
+# at one position (serving attends lengths + 1); every slot at 2,048 and at
+# the capacity; and every slot at one position, the call's floor at the
+# same grid (launch, one tile a block, the merge's launch)
+TRUNK_DIMS = {"smollm2-1.7b": (24, 16, 8192, 32, 64, 32),
+              "mistral-7b-v0.3": (32, 8, 8192, 8, 128, 32)}
+TRUNK_SHAPES = {
+    "smollm2-1.7b": {
+        "chat": [1] * 5 + [60, 120, 180, 240, 300, 330, 360, 420, 480, 560, 700],
+        "clone": [1] * 4 + [1400, 1530, 1660, 1790, 1920, 2050, 2180, 2310, 2440, 2570, 2700,
+                            2800],
+        "all_2048": [2048] * 16,
+        "all_live": [8192] * 16,
+        "floor": [1] * 16,
+    },
+    "mistral-7b-v0.3": {
+        "read": [60, 150, 250, 350, 450, 550, 650, 730],
+        "all_2048": [2048] * 8,
+        "all_live": [8192] * 8,
+        "floor": [1] * 8,
+    },
+}
+
+
+def decode_bytes(lens, KV: int, HD: int, S: int, H: int, quant: bool = False) -> int:
+    """Bytes one decode-attention call needs: each slot's live K and V rows
+    (and int8 scales) once, q in and the output once."""
+    row = 2 * KV * HD * (1 if quant else 2) + (2 * KV * 4 if quant else 0)
+    return sum(min(n, S) for n in lens) * row + 2 * len(lens) * H * HD * 2
 
 
 def graph_ms(fn, calls: int = GRAPH_CALLS, replays: int = REPLAYS) -> float:
@@ -462,6 +498,33 @@ def w8a8_ab_times(torch, dev, rows=W8A8_ROWS) -> dict:
     return out
 
 
+def layered_timings(torch, da, dev, dims, shapes) -> dict:
+    """The layered kernel over a random bf16 cache of ``dims`` (L, B, S,
+    KV, HD, H) at each of ``shapes`` (name -> live lengths): ``timings``,
+    the device us of each CUDA kernel, the byte bound (3.35 TB/s), SDPA's
+    device ms on the same inputs (``library_ms``) and, at the first shape,
+    the plain twin's ms (events around 3 eager calls)."""
+    L_, B_, S_, KV_, HD_, H_ = dims
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn(B_, H_, HD_, generator=g, device=dev).to(torch.bfloat16)
+    kb = torch.randn(L_, B_, KV_, S_, HD_, generator=g, device=dev).to(torch.bfloat16)
+    vb = torch.randn(L_, B_, KV_, S_, HD_, generator=g, device=dev).to(torch.bfloat16)
+    out = {}
+    for n, (name, lens) in enumerate(shapes.items()):
+        lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+        fn = lambda i: da.decode_attention_layered(q, kb, vb, lt, i % L_)  # noqa: E731
+        rec = dict(timings(fn), by_kernel_us=kernel_us(fn),
+                   bound_ms=decode_bytes(lens, KV_, HD_, S_, H_) / 3.35e9,
+                   library_ms=graph_ms(sdpa_call(torch, q, kb, vb, lt)))
+        if n == 0:
+            rec["plain_ms"] = events_ms(
+                lambda i: da.decode_attention_layered_plain(q, kb, vb, lt, i % L_), 3)
+        out[name] = rec
+    del q, kb, vb
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     import sys
 
@@ -513,22 +576,26 @@ def main() -> None:
         return
     g = torch.Generator(device=dev).manual_seed(0)
     q = torch.randn(B, H, HD, generator=g, device=dev).to(torch.bfloat16)
-    out = {"card": torch.cuda.get_device_name(0), "slots": {}, "layered": {}, "sdpa": {}}
+    out = {"card": torch.cuda.get_device_name(0), "slots": {}}
     k8 = torch.randint(-127, 128, (L, B, S, KV * HD), generator=g, device=dev, dtype=torch.int8)
     v8 = torch.randint(-127, 128, (L, B, S, KV * HD), generator=g, device=dev, dtype=torch.int8)
     sc = torch.rand(L, B, S, 2 * KV, generator=g, device=dev) * 0.02 + 0.002
     for name, lens in SHAPES.items():
         lt = torch.tensor(lens, dtype=torch.int32, device=dev)
         fn = lambda i: da.decode_attention_int8_slots(q, k8, v8, sc, lt, i % L)  # noqa: E731
-        out["slots"][name] = dict(timings(fn), by_kernel_us=kernel_us(fn))
-    del k8, v8, sc
-    kb = torch.randn(L, B, KV, S, HD, generator=g, device=dev).to(torch.bfloat16)
-    vb = torch.randn(L, B, KV, S, HD, generator=g, device=dev).to(torch.bfloat16)
-    for name, lens in SHAPES.items():
-        lt = torch.tensor(lens, dtype=torch.int32, device=dev)
-        fn = lambda i: da.decode_attention_layered(q, kb, vb, lt, i % L)  # noqa: E731
-        out["layered"][name] = dict(timings(fn), by_kernel_us=kernel_us(fn))
-        out["sdpa"][name] = dict(device_ms=graph_ms(sdpa_call(torch, q, kb, vb, lt)))
+        out["slots"][name] = dict(timings(fn), by_kernel_us=kernel_us(fn),
+                                  bound_ms=decode_bytes(lens, KV, HD, S, H, True) / 3.35e9)
+    del q, k8, v8, sc
+    out["layered"] = layered_timings(torch, da, dev, (L, B, S, KV, HD, H), SHAPES)
+    for model, shapes in TRUNK_SHAPES.items():
+        out[model] = layered_timings(torch, da, dev, TRUNK_DIMS[model], shapes)
+    for part in ["slots", "layered", *TRUNK_SHAPES]:
+        for name, r in out[part].items():
+            r["share"] = r["bound_ms"] / r["device_ms"]
+            print(f"{part} {name}: {r['device_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({100 * r['share']:.1f}%), host {r['host_us']:.1f} us, plain "
+                  f"{r.get('plain_ms')}, library {r.get('library_ms')}, by kernel "
+                  f"{r['by_kernel_us']}", flush=True)
     print(json.dumps(out), flush=True)
 
 

@@ -39,15 +39,32 @@ def cuda():
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("HD,G", [(128, 3), (64, 4)])
-def test_cuda_kernels_match_twins(cuda, HD, G):
+@pytest.mark.parametrize("HD,G,KV,S,lengths", [
+    (128, 3, 8, 1024, (0, 1, 65, 700, 1024, 1124)),
+    (64, 4, 8, 1024, (0, 1, 65, 700, 1024, 1124)),
+    (64, 1, 32, 8192, (0, 1, 513, 2047, 8192, 8292)),
+    (128, 4, 8, 8192, (0, 1, 513, 2047, 8192, 8292)),
+    (64, 2, 8, 1024, (0, 1, 65, 700, 1024, 1124)),
+    (64, 3, 8, 1024, (0, 1, 65, 700, 1024, 1124)),
+    (128, 1, 8, 1024, (0, 1, 65, 700, 1024, 1124)),
+    (128, 2, 8, 1024, (0, 1, 65, 700, 1024, 1124)),
+])
+@pytest.mark.parametrize("blocks_per_sm", [1, da.SPLIT_BLOCKS_PER_SM])
+def test_cuda_kernels_match_twins(cuda, monkeypatch, HD, G, KV, S, lengths, blocks_per_sm):
     """Both decode-attention kernels (the layered one with bf16 and int8
-    caches) at the Orpheus-3B (128, 3) and 1B (64, 4) head shapes, with one
-    slot past the capacity and one of length 0 (zeros)."""
+    caches) at every (HD, G) that ``flash_decode_supported`` names: the
+    Orpheus-3B (128, 3) and 1B (64, 4) head shapes, the benchmark trunks'
+    SmolLM2-1.7B (64, 1) and Mistral-7B (128, 4) at their capacity of 8192
+    (lengths across the 512-position split edges), and the other groups of
+    1 to 4; with one slot past the capacity and one of length 0 (zeros).
+    With the split grid capped at one block an SM, where at S = 8192 a
+    block strides over several splits, and at the default cap."""
+    assert da.flash_decode_supported(HD, G)
+    monkeypatch.setattr(da, "SPLIT_BLOCKS_PER_SM", blocks_per_sm)
     g = torch.Generator(device=cuda).manual_seed(0)
-    L, B, S, KV = 2, 6, 1024, 8
+    L, B = 2, len(lengths)
     H = KV * G
-    lens = torch.tensor([0, 1, 65, 700, 1024, 1024 + 100], dtype=torch.int32, device=cuda)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
     q = torch.randn(B, H, HD, generator=g, device=cuda).to(torch.bfloat16)
     k8 = torch.randint(-127, 128, (L, B, S, KV * HD), generator=g, device=cuda, dtype=torch.int8)
     v8 = torch.randint(-127, 128, (L, B, S, KV * HD), generator=g, device=cuda, dtype=torch.int8)
@@ -267,6 +284,72 @@ def test_traced_frame_graph_stamps_its_stages(cuda):
         events_ns = ev[0].elapsed_time(ev[1]) * 1e6
         assert abs(total - events_ns) <= 0.02 * events_ns, (total, events_ns)
     assert torch.equal(off._run_program(128, 1, False)[0], outs[0])
+
+
+def _seed_slots(eng, lengths, seed: int = 3) -> None:
+    """The same slot state in any engine of one model: a random cache,
+    ``lengths``, a token a slot, every lane active and greedy."""
+    g = torch.Generator(device=eng.device).manual_seed(seed)
+    for t in eng.cache.values():
+        t.copy_(torch.randn(t.shape, generator=g, device=eng.device).to(t.dtype))
+    eng.lengths.copy_(torch.tensor(lengths, dtype=torch.int32))
+    eng.last_tokens.copy_(torch.randint(3, 1000, eng.last_tokens.shape, generator=g,
+                                        device=eng.device, dtype=torch.int32))
+    eng.active.fill_(True)
+    eng.remaining.fill_(10_000)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("H,KV,HD", [(32, 32, 64), (32, 8, 128)])  # SmolLM2-1.7B, Mistral-7B
+def test_bf16_frame_graph_runs_the_layered_kernel(cuda, H, KV, HD):
+    """At both trunks' head shapes "auto" sends a bf16 cache on one card to
+    the layered kernel: the frame graph launches it L x 7 times a replay,
+    and its greedy tokens equal those of a dense frame graph from the same
+    state.  Where a lane's tokens first differ, the dense step's logits of
+    the two tokens lie within 4e-2 of its largest |logit| (a near tie moved
+    by the dense branch's bf16 rounding of P; ``tests/test_torch_llama.py::
+    test_kernel_branch_matches_dense_in_bf16``), and the lane is not
+    compared after it."""
+    from project_morpheus_tpu_torch.engine import EngineConfig, OrpheusEngine
+    from project_morpheus_tpu_torch.model.llama import llama_decode_step
+    from project_morpheus_tpu_torch.model.quant import quantize_params_int8
+
+    L, S, bucket = 4, 4096, 4096
+    lengths = [5, 130, 511, 513, 1000, 2047, 2500, 4000]
+    cfg = gc.small_config(num_layers=L, num_heads=H, num_kv_heads=KV, head_dim=HD,
+                          hidden_size=1024, max_seq_len=S)
+    params = quantize_params_int8(init_llama_params(cfg, 7, cuda, torch.bfloat16))
+    engines, toks = {}, {}
+    for impl in ("auto", "dense"):
+        ecfg = EngineConfig(max_slots=len(lengths), max_seq_len=S, prefill_buckets=(32, 64),
+                            prefill_chunk=64, context_buckets=(bucket,),
+                            cache_dtype="bfloat16", attn_impl=impl, default_stop_ids=())
+        eng = engines[impl] = OrpheusEngine(params, cfg, ecfg, device=cuda)
+        _seed_slots(eng, lengths)
+        eng._run_program(bucket, 1, False)  # run once, then captured
+        _seed_slots(eng, lengths)
+        before = dict(da.LAUNCHES)
+        toks[impl] = eng._run_program(bucket, 1, False)[0].clone()  # a replay
+        torch.cuda.synchronize()
+        n = da.LAUNCHES["decode_attention_layered"] - before["decode_attention_layered"]
+        assert n == (L * eng.steps_per_sync if impl == "auto" else 0), (impl, n)
+    assert engines["auto"]._attn_for(bucket) == "kernel"
+    assert {k[1] for k in engines["auto"].programs.graph_keys} == {"kernel"}
+    kt, dt = toks["auto"].cpu(), toks["dense"].cpu()
+    assert kt.shape == (7, len(lengths)) and bool((kt >= 0).all())
+    eng = engines["dense"]  # dense logits along the kernel frame's tokens
+    _seed_slots(eng, lengths)
+    tokens, open_lanes = eng.last_tokens.clone(), set(range(len(lengths)))
+    for step in range(kt.shape[0]):
+        logits = llama_decode_step(eng.params, tokens, cfg, eng.cache, eng.lengths,
+                                   attn_impl="dense", bucket=bucket).cpu()
+        for b in sorted(open_lanes):
+            if kt[step, b] != dt[step, b]:
+                gap = logits[b, dt[step, b]] - logits[b, kt[step, b]]
+                assert 0 <= gap <= 4e-2 * logits[b].abs().max(), (step, b, gap)
+                open_lanes.discard(b)
+        eng.lengths.add_(1)
+        tokens = kt[step].to(cuda)
 
 
 @pytest.mark.requires_cuda

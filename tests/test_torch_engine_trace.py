@@ -5,7 +5,8 @@ and PCM are the same bits.  Each request's three phase spans are
 contiguous and sum to its submit-to-first-hop interval, which lies inside
 the client's own; loop spans nest; a frame program's marks, taken on the
 host clock here, give stages that sum to its first-to-last mark; the lane
-counters equal the tokens routed and steps x ``max_slots``.  The card's
+counters equal the tokens routed and steps x ``max_slots``, and the
+attention counters count every frame under its path.  The card's
 side (timestamps written inside a captured graph) is in
 ``tests/test_torch_cuda.py``."""
 import asyncio
@@ -146,6 +147,8 @@ def test_lane_counters_equal_the_tokens_routed(traced):
     # each request's first token comes from its prefill, the rest from frames
     assert c["lanes_emitted"] == sum(len(t) - 1 for _, t, _, _ in served) > 0
     assert len(eng.trace.frames) == eng.steps // STEPS
+    # on the CPU "auto" resolves to the dense branch for every frame
+    assert c["attn_dense_frames"] == eng.steps // STEPS and c["attn_kernel_frames"] == 0
 
 
 @pytest.mark.parametrize("audio,k", [(True, 1), (True, 2), (False, 1)])

@@ -152,6 +152,38 @@ def test_decode_steps_match_jax(cfg, kind, attn, quant):
     _assert_cache_close(jc, tc)
 
 
+@pytest.mark.parametrize("kv_heads", [4, 1])  # G = 1 (SmolLM2's MHA) and G = 4 (Mistral's)
+def test_kernel_branch_matches_dense_in_bf16(kv_heads):
+    """bf16 weights and cache, as served: the kernel branch (its twin on the
+    CPU: P in fp32) against the dense branch (P rounded to bf16 before
+    P.V), each on its own copy of a random cache, three steps, lanes at
+    lengths 0-130 and one inactive on the last step.  Active lanes' logits
+    agree within 4e-2 of the largest |logit|: the dense branch's bf16 P and
+    its knock-on roundings of the bf16 activations (measured 1.0-2.4%; a
+    kernel that misses the newest position is off by over 100%)."""
+    cfg = LlamaConfig(vocab_size=1024, hidden_size=64, intermediate_size=128, num_layers=2,
+                      num_heads=4, num_kv_heads=kv_heads, head_dim=16, max_seq_len=256,
+                      rope_scaling_factor=1.0)
+    params = tl.init_llama_params(cfg, 5, "cpu", torch.bfloat16)
+    g = torch.Generator().manual_seed(1)
+    B, S = 4, 256
+    cache = tl.init_kv_cache(cfg, B, S, torch.bfloat16, "cpu")
+    for t in cache.values():
+        t.copy_(torch.randn(t.shape, generator=g).to(torch.bfloat16))
+    caches = {a: {n: t.clone() for n, t in cache.items()} for a in ("dense", "kernel")}
+    lengths = torch.tensor([40, 3, 130, 0], dtype=torch.int32)
+    for step in range(3):
+        toks = torch.randint(3, 1000, (B,), generator=g)
+        active = torch.tensor([True, True, step < 2, True])
+        out = {a: tl.llama_decode_step(params, toks, cfg, c, lengths, active=active,
+                                       attn_impl=a, bucket=S)
+               for a, c in caches.items()}
+        scale = out["dense"][active].abs().max()
+        assert torch.all((out["kernel"] - out["dense"])[active].abs() <= 4e-2 * scale)
+        assert torch.all(out["kernel"][~active] == 0)
+        lengths = lengths + active.int()
+
+
 _jax_prefill_batch = jax.jit(jl.llama_prefill_chunk_batch,
                              static_argnames=("cfg", "hist_bucket", "w8a8"))
 
