@@ -5,9 +5,10 @@
 For each seed, in one process: a run of the cell at its own load (set-up,
 the window, the drain), then the check's numbers for the program beside
 its controls: ``logit_gap`` beside ``control_gap``, the gap of the tokens
-that the reference puts first with int4 weights in place of the int8 the
-configuration states; ``pcm_lsb`` beside ``control_lsb``, the reference's
-SNAC decode in TF32 against its fp32 decode.  One JSON line a seed.  The
+that the configuration's family's reference puts first with int4 weights
+in place of the int8 the configuration states; ``pcm_lsb`` beside
+``control_lsb``, the reference's SNAC decode in TF32 against its fp32
+decode.  One JSON line a seed.  The
 benchmark's own runs never compute the controls.
 """
 from __future__ import annotations

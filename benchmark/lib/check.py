@@ -1,5 +1,5 @@
 """How ``correct`` is decided: the timed path's own outputs against the
-plain reference (``benchmark/reference``), once the window has closed.
+plain reference, once the window has closed.
 
 - Served tokens: a sample, drawn from the seed, of the greedy requests
   that finished, the longest among them, until it holds
@@ -14,8 +14,9 @@ plain reference (``benchmark/reference``), once the window has closed.
 - ``unfinished`` and ``malformed`` count requests that never completed by
   the drain deadline and finished ones whose PCM or token count is wrong.
 
-The reference makes the weights again from the seed; it takes nothing
-the program made.
+The reference is the configuration's decoder family's
+(``families/<family>/reference.py``) and the SNAC decoder; it makes the
+weights again from the seed and takes nothing the program made.
 """
 from __future__ import annotations
 
@@ -23,10 +24,11 @@ from typing import Dict, List
 
 import numpy as np
 
-from ..reference import llama as ref_llama
+from ..reference import scoring
 from ..reference import snac as ref_snac
+from . import spec
 from .traffic import AUDIO_BASE, CODEBOOK, FRAME_TOKENS
-from .weights import dims, llama_weights, snac_weights
+from .weights import snac_weights
 
 
 def codes_of(tokens: List[int]) -> np.ndarray:
@@ -52,23 +54,25 @@ def samples(records: List[Dict], seed: int, conf_check: Dict):
     return picked, pcm[: conf_check["pcm_requests"]]
 
 
-def logit_readings(weights, d: Dict, recs: List[Dict], penalty: float, control_bits: int = 0):
+def logit_readings(reference, weights, d: Dict, recs: List[Dict], penalty: float,
+                   control_bits: int = 0):
     """Per request: the program's widest gap and, with ``control_bits``,
-    the gap of the tokens that int-``control_bits`` weights put first."""
+    the gap of the tokens that int-``control_bits`` weights put first.
+    ``reference`` is the family's module with ``logits``."""
     seqs = [{"ids": r["item"].prompt + r["tokens"][:-1], "prompt": len(r["item"].prompt),
              "want": list(range(len(r["item"].prompt) - 1,
                                 len(r["item"].prompt) + len(r["tokens"]) - 1))} for r in recs]
-    with ref_llama.exact_fp32():
-        lg = ref_llama.logits(weights, d, seqs)
-        ctl = ref_llama.logits(weights, d, seqs, weight_bits=control_bits) if control_bits \
+    with scoring.exact_fp32():
+        lg = reference.logits(weights, d, seqs)
+        ctl = reference.logits(weights, d, seqs, weight_bits=control_bits) if control_bits \
             else None
     out = []
     for i, r in enumerate(recs):
-        sc = ref_llama.served_scores(lg[i], d, r["item"].prompt, r["tokens"], penalty)
-        row = {"tokens": len(r["tokens"]), "gap": ref_llama.widest_gap(sc, r["tokens"])}
+        sc = scoring.served_scores(lg[i], d, r["item"].prompt, r["tokens"], penalty)
+        row = {"tokens": len(r["tokens"]), "gap": scoring.widest_gap(sc, r["tokens"])}
         if ctl is not None:
-            cs = ref_llama.served_scores(ctl[i], d, r["item"].prompt, r["tokens"], penalty)
-            row["control_gap"] = ref_llama.widest_gap(sc, cs.argmax(dim=1).tolist())
+            cs = scoring.served_scores(ctl[i], d, r["item"].prompt, r["tokens"], penalty)
+            row["control_gap"] = scoring.widest_gap(sc, cs.argmax(dim=1).tolist())
         out.append(row)
     return out
 
@@ -79,13 +83,13 @@ def pcm_readings(snac, codec: Dict, recs: List[Dict], control: bool = False):
     out = []
     for r in recs:
         codes = codes_of(r["tokens"])
-        with ref_llama.exact_fp32():
+        with scoring.exact_fp32():
             want = ref_snac.stream_hops(snac, codec, codes)
         got = [np.frombuffer(p, np.int16) for p in r["pcm"]]
         row = {"hops": len(got), "lsb": max(int(np.abs(a.astype(np.int64) - b).max())
                                             for a, b in zip(got, want))}
         if control:
-            with ref_llama.exact_fp32(tf32=True):
+            with scoring.exact_fp32(tf32=True):
                 tf = ref_snac.stream_hops(snac, codec, codes)
             row["control_lsb"] = max(int(np.abs(a.astype(np.int64) - b).max())
                                      for a, b in zip(tf, want))
@@ -100,7 +104,8 @@ def run(conf: Dict, mix: Dict, seed: int, device, records: List[Dict], control: 
     import torch
 
     limits = conf["limits"]
-    d = dims(conf)
+    family = spec.family(conf)
+    d = family.weights.dims(conf)
     greedy, pcm = samples(records, seed, mix["check"])
     unfinished = sum(1 for r in records if r["req"] is None or not r["req"].done
                      or r["req"].state.value != "finished")
@@ -111,8 +116,9 @@ def run(conf: Dict, mix: Dict, seed: int, device, records: List[Dict], control: 
                     "pcm_requests": len(pcm), "pcm_hops": sum(len(r["pcm"]) for r in pcm)}
     gap, lsb = float("inf"), float("inf")
     if greedy:
-        w = llama_weights(conf, seed, device, dtype)
-        rows = logit_readings(w, d, greedy, mix["sampling"]["repetition_penalty"],
+        w = family.weights.weights(conf, seed, device, dtype)
+        rows = logit_readings(family.reference, w, d, greedy,
+                              mix["sampling"]["repetition_penalty"],
                               control_bits=4 if control else 0)
         del w
         gap = max(r["gap"] for r in rows)

@@ -1,7 +1,9 @@
 """The system under test: ``project_morpheus_tpu_torch``'s engine, built
-as its ``ServingRuntime`` builds it, from a configuration file's fields.
+as its ``ServingRuntime`` builds it, from a configuration file's fields
+and its decoder family's inputs (``families/<family>/``).
 
-This module and ``trace.py`` are the only ones that import the program.
+This module, ``trace.py`` and each family's ``program.py`` are the only
+ones that import the program.
 """
 from __future__ import annotations
 
@@ -11,8 +13,8 @@ from typing import Dict, Iterable
 
 import torch
 
-from . import traffic
-from .weights import dims, llama_weights, snac_weights
+from . import spec, traffic
+from .weights import snac_weights
 
 
 BUILD_DIRS = [Path(__file__).resolve().parents[2] / "project_morpheus_tpu_torch" / sub / "_build"
@@ -23,17 +25,6 @@ def built_libraries() -> int:
     """Libraries the port has built in this checkout so far (none before
     its first run: that run's set-up compiles them)."""
     return sum(len(list(d.glob("*.so"))) for d in BUILD_DIRS if d.is_dir())
-
-
-def llama_config(conf: Dict):
-    from project_morpheus_tpu_torch.model.config import LlamaConfig
-
-    d = dims(conf)
-    return LlamaConfig(vocab_size=d["V"], hidden_size=d["D"], intermediate_size=d["F"],
-                       num_layers=d["L"], num_heads=d["H"], num_kv_heads=d["KV"],
-                       head_dim=d["HD"], max_seq_len=conf["engine"]["max_seq_len"],
-                       rope_theta=d["theta"], rope_scaling_factor=1.0, rms_eps=d["eps"],
-                       tie_embeddings=d["tied"], dtype=conf["engine"]["dtype"])
 
 
 def snac_config(codec: Dict):
@@ -47,22 +38,22 @@ def snac_config(codec: Dict):
 
 
 def build_engine(conf: Dict, seed: int, device: str):
-    """The engine over this seed's weights: bf16 weights made on the
-    device, ``quantize_params_int8``, ``EngineConfig`` from the file's
+    """The engine over this seed's weights: the family's weights made on
+    the device in the served dtype, handed to the engine as the family's
+    ``engine_inputs`` gives them, ``EngineConfig`` from the file's
     ``engine`` fields, ``OrpheusEngine`` with the SNAC codec."""
     from project_morpheus_tpu_torch.engine import EngineConfig, OrpheusEngine
-    from project_morpheus_tpu_torch.model.quant import quantize_params_int8
 
     e = conf["engine"]
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[e["dtype"]]
-    params = llama_weights(conf, seed, device, dtype)
-    if e["quant"] == "int8":
-        params = quantize_params_int8(params)
+    family = spec.family(conf)
+    params, model_config = family.program.engine_inputs(
+        conf, family.weights.weights(conf, seed, device, dtype))
     fields = {f.name for f in dataclasses.fields(EngineConfig)}
     ecfg = EngineConfig(**{k: (tuple(v) if isinstance(v, list) else v)
                            for k, v in e.items() if k in fields})
     codec = (snac_weights(conf["codec"], seed, device), snac_config(conf["codec"]))
-    engine = OrpheusEngine(params, llama_config(conf), ecfg, codec=codec, device=device)
+    engine = OrpheusEngine(params, model_config, ecfg, codec=codec, device=device)
     del params
     return engine
 

@@ -5,18 +5,24 @@ each cell names a configuration (``configs/<file>``, by the path the
 configuration's entry gives) and a traffic mix (``mixes/<name>.json``);
 each metric is read by ``metrics/<name>.py`` (or, for a quantity split
 by name, by the metric it moves or by the bound its cells need, by the
-file of the part before the dot).
+file of the part before the dot); each configuration's decoder is built,
+weighed and referenced by its family, ``families/<family>/`` (the
+configuration's key ``family``; ``llama`` where it has none).
 Nothing here names a particular cell, mix or metric.
 """
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
+import sys
 from pathlib import Path
 from typing import Dict, List
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
 ROOT = BENCH_DIR.parent
+DEFAULT_FAMILY = "llama"
+FAMILY_MODULES = ("weights", "program", "reference")
 
 
 def load_benchmark(root: Path = ROOT) -> Dict:
@@ -72,3 +78,44 @@ def load_reader(name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _family_module(name: str, module: str):
+    """``benchmark.families.<name>.<module>``; KeyError naming the file
+    looked for where the family or the module is not there."""
+    from benchmark import families
+
+    qual = f"{families.__name__}.{name}.{module}"
+    try:
+        return importlib.import_module(qual)
+    except ModuleNotFoundError as e:
+        if e.name is None or not (qual == e.name or qual.startswith(e.name + ".")):
+            raise
+        looked = ", ".join(str(Path(d) / name / f"{module}.py") for d in families.__path__)
+        raise KeyError(f"no decoder family {name!r} with {module}.py: no {looked}") from None
+
+
+def load_family(name: str):
+    """The decoder family ``families/<name>/``, the package
+    ``benchmark.families.<name>`` with its three modules loaded:
+    ``weights`` (``dims(conf)``, ``weights(conf, seed, device, dtype)``),
+    ``program`` (``engine_inputs(conf, params)``) and ``reference``
+    (``logits(weights, d, seqs, weight_bits)``)."""
+    mods = [_family_module(name, m) for m in FAMILY_MODULES]
+    return sys.modules[mods[0].__package__]
+
+
+def family_counts(name: str):
+    """The family's ``counts.py``: the operations and bytes its decoder's
+    work needs (``lib/counts.py`` forwards to it)."""
+    return _family_module(name, "counts")
+
+
+def family_name(conf: Dict) -> str:
+    """The family a configuration names under ``family``."""
+    return conf.get("family", DEFAULT_FAMILY)
+
+
+def family(conf: Dict):
+    """The family a configuration names, loaded."""
+    return load_family(family_name(conf))

@@ -1,14 +1,15 @@
 """The inputs both sides are handed: random weights made from the seed.
 
-Weights are drawn on the device with one seeded ``torch.Generator``, one
-call for each stacked leaf, in the dtype they are served in (bf16 for the
-decoder, fp32 for the codec).  The program quantizes and fuses them
-itself; the plain reference (``benchmark/reference``) makes the same
-tensors again from the same seed after the window and works out the
-int8 weights on its own.  The layouts are the program's interface: a
-decoder weight is ``(layers, in, out)``, a codec conv ``(k, in/groups,
-out)``, a transposed conv time-flipped ``(k, in, out)``.  Imports nothing
-of the program.
+Weights are drawn on the device with one seeded ``torch.Generator`` for
+each tree, one call for each stacked leaf, in the dtype they are served in
+(bf16 for the decoder, fp32 for the codec).  The program quantizes and
+fuses them itself; the plain reference makes the same tensors again from
+the same seed after the window and works out the int8 weights on its
+own.  The layouts are the program's interface: a codec conv ``(k,
+in/groups, out)``, a transposed conv time-flipped ``(k, in, out)``.  This
+module holds what every configuration shares, the generator and the SNAC
+codec; a decoder's tree is its family's (``families/<family>/weights.py``).
+Imports nothing of the program.
 """
 from __future__ import annotations
 
@@ -17,58 +18,11 @@ from typing import Dict
 
 import torch
 
-_LLAMA_STREAM = 0x5EED_11A
 _SNAC_STREAM = 0x5EED_5AC
 
 
-def _gen(seed: int, stream: int, device) -> torch.Generator:
+def generator(seed: int, stream: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed((int(seed) * 1_000_003 + stream) % 2**63)
-
-
-def dims(conf: Dict) -> Dict:
-    """The decoder's sizes from a configuration file."""
-    vocab = conf["vocab_size"]
-    return dict(D=conf["hidden_size"], F=conf["intermediate_size"],
-                L=conf["num_hidden_layers"], H=conf["num_attention_heads"],
-                KV=conf["num_key_value_heads"], HD=conf["head_dim"], V=vocab,
-                Vp=(vocab + 255) // 256 * 256, tied=bool(conf["tie_word_embeddings"]),
-                theta=float(conf["rope_theta"]), eps=float(conf["rms_norm_eps"]))
-
-
-@torch.no_grad()
-def llama_weights(conf: Dict, seed: int, device, dtype=torch.bfloat16) -> Dict:
-    """``{"embed", "layers": {stacked leaves}, "ln_f"[, "lm_head"]}``.
-    Projection scales are ``fan_in ** -0.5``, the embedding's 0.02, and
-    the norm scales 1 + 0.1 N(0, 1), so that a norm applied at the wrong
-    place shows."""
-    d = dims(conf)
-    D, F, L, H, KV, HD, Vp = (d[k] for k in ("D", "F", "L", "H", "KV", "HD", "Vp"))
-    g = _gen(seed, _LLAMA_STREAM, device)
-
-    def normal(shape, scale):
-        return torch.randn(shape, generator=g, device=device, dtype=dtype).mul_(scale)
-
-    def norm(shape):
-        return torch.randn(shape, generator=g, device=device, dtype=dtype).mul_(0.1).add_(1.0)
-
-    params = {
-        "embed": normal((Vp, D), 0.02),
-        "layers": {
-            "ln1": norm((L, D)),
-            "wq": normal((L, D, H * HD), D ** -0.5),
-            "wk": normal((L, D, KV * HD), D ** -0.5),
-            "wv": normal((L, D, KV * HD), D ** -0.5),
-            "wo": normal((L, H * HD, D), (H * HD) ** -0.5),
-            "ln2": norm((L, D)),
-            "wg": normal((L, D, F), D ** -0.5),
-            "wu": normal((L, D, F), D ** -0.5),
-            "wd": normal((L, F, D), F ** -0.5),
-        },
-        "ln_f": norm((D,)),
-    }
-    if not d["tied"]:
-        params["lm_head"] = normal((D, Vp), D ** -0.5)
-    return params
 
 
 def _snac_shapes(c: Dict):
@@ -105,7 +59,7 @@ def snac_weights(codec: Dict, seed: int, device) -> Dict:
     """The SNAC decoder's weights in the program's tree: uniform in
     [-b, b] with b = fan_in ** -0.5 (PyTorch's conv default bound, as the
     released checkpoint's init), codebooks N(0, 1); two generator calls."""
-    g = _gen(seed, _SNAC_STREAM, device)
+    g = generator(seed, _SNAC_STREAM, device)
     shapes = _snac_shapes(codec)
     flat = torch.rand((sum(math.prod(s) for _, s, _ in shapes),), generator=g, device=device,
                       dtype=torch.float32)

@@ -68,7 +68,6 @@ async def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, devic
     import torch
 
     from benchmark.lib import check, drive, program, spec, traffic
-    from benchmark.lib.weights import dims
 
     log = log or (lambda *a: print(*a, file=sys.stderr, flush=True))
     bench = bench or spec.load_benchmark()
@@ -114,8 +113,10 @@ async def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, devic
         torch.cuda.empty_cache()
 
     reqs = res["records"]
-    run = Run(conf=conf, mix=mix, cell=cell, d=dims(conf), records=reqs, t0=res["t0"],
-              t1=res["t1"], deadline=res["deadline"], seconds=seconds, setup_s=setup_s,
+    # the family's sizes, named by it, whose counts the readers reach (lib/counts.py)
+    d = dict(spec.family(conf).weights.dims(conf), family=spec.family_name(conf))
+    run = Run(conf=conf, mix=mix, cell=cell, d=d, records=reqs, t0=res["t0"], t1=res["t1"],
+              deadline=res["deadline"], seconds=seconds, setup_s=setup_s,
               hop_audio_s=hop_audio_s, tracer=tracer, **geometry)
     out_metrics = {}
     for m in metrics:

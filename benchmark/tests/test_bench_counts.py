@@ -1,7 +1,14 @@
-"""The roofline and MFU counts against hand-computed values, tiny sizes."""
+"""The roofline and MFU counts against hand-computed values, tiny sizes:
+the llama family's, and ``lib/counts.py`` reaching them through the
+family that ``run.d`` names."""
+import shutil
+
 import pytest
 
-from benchmark.lib import counts
+import benchmark.families
+from benchmark.families.llama import counts
+from benchmark.lib import counts as run_counts
+from benchmark.tests.conftest import ROOT
 
 # D 8, F 16, L 2, H 4, KV 2, HD 2, Vp 256
 D = dict(D=8, F=16, L=2, H=4, KV=2, HD=2, Vp=256, V=250, tied=False)
@@ -45,3 +52,22 @@ def test_decode_and_prefill_flops():
     assert counts.prefill_tokens_s_at_peak(D, 5, 3) == pytest.approx(
         proj / 1.979e15 + (attn + head) / 989e12)
     assert counts.prefill_tokens_s_at_peak(D, 5, 0) == 0.0
+
+
+def test_counts_follow_the_run_s_family(tmp_path, monkeypatch):
+    run_d = dict(D, family="llama")
+    assert run_counts.decode_step_gemv_bytes(run_d, 3) == counts.decode_step_gemv_bytes(D, 3)
+    assert run_counts.head_gemv_bytes(run_d, 2) == counts.head_gemv_bytes(D, 2)
+    assert run_counts.w8a8_round_bound_s(run_d, 4) == counts.w8a8_round_bound_s(D, 4)
+    assert run_counts.decode_token_s_at_peak(run_d, 9) == counts.decode_token_s_at_peak(D, 9)
+    assert run_counts.prefill_tokens_s_at_peak(run_d, 5, 3) == \
+        counts.prefill_tokens_s_at_peak(D, 5, 3)
+    # a family with no counts of its own reads none of llama's
+    shutil.copytree(ROOT / "benchmark" / "families" / "llama", tmp_path / "nocounts",
+                    ignore=shutil.ignore_patterns("__pycache__", "counts.py"))
+    monkeypatch.setattr(benchmark.families, "__path__",
+                        [*benchmark.families.__path__, str(tmp_path)])
+    with pytest.raises(KeyError, match="nocounts/counts.py"):
+        run_counts.decode_step_gemv_bytes(dict(D, family="nocounts"), 3)
+    with pytest.raises(KeyError):
+        run_counts.decode_token_s_at_peak(D, 9)

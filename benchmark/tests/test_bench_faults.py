@@ -10,7 +10,7 @@ import torch
 
 from benchmark import run as bench_run
 from benchmark.lib.weights import snac_weights
-from benchmark.reference import llama as ref_llama
+from benchmark.reference import scoring
 from benchmark.reference import snac as ref_snac
 from benchmark.tests.conftest import tiny_bench, tiny_mix
 
@@ -106,9 +106,9 @@ def test_tf32_control_fails_the_pcm_limit(cuda):
     conf = spec.load_config(spec.load_benchmark(), "smollm2-1.7b")
     snac = snac_weights(conf["codec"], 5, cuda)
     codes = np.random.default_rng(5).integers(0, 4096, size=7 * 16)
-    with ref_llama.exact_fp32():
+    with scoring.exact_fp32():
         want = ref_snac.stream_hops(snac, conf["codec"], codes)
-    with ref_llama.exact_fp32(tf32=True):
+    with scoring.exact_fp32(tf32=True):
         got = ref_snac.stream_hops(snac, conf["codec"], codes)
     lsb = max(int(np.abs(a.astype(np.int64) - b).max()) for a, b in zip(got, want))
     assert lsb > conf["limits"]["pcm_lsb"]

@@ -51,18 +51,39 @@ def test_run_refuses_without_a_card(tmp_path):
 FORBIDDEN = {"jax", "jaxlib", "flax", "project_morpheus_tpu"}
 
 
-def _imports(path: Path):
+def _imports(path: Path, root: Path = ROOT):
+    """The modules a file imports, a relative import resolved against the
+    file's package under ``root``."""
     tree = ast.parse(path.read_text())
+    package = path.relative_to(root).parent.parts
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+        elif isinstance(node, ast.ImportFrom) and not node.level:
             yield node.module
+        elif isinstance(node, ast.ImportFrom):
+            base = ".".join(package[:len(package) - node.level + 1])
+            if node.module:
+                yield f"{base}.{node.module}"
+            else:
+                yield from (f"{base}.{a.name}" for a in node.names)
     for node in ast.walk(tree):  # importlib by name
         if isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module":
             for a in node.args:
                 if isinstance(a, ast.Constant):
                     yield a.value
+
+
+def _program_imports(path: Path, root: Path = ROOT):
+    """What a file imports of the program: the port, or a module of the
+    benchmark that imports it (``lib/program.py``, ``lib/trace.py``, a
+    family's ``program.py``)."""
+    for name in _imports(path, root):
+        parts = name.split(".")
+        if parts[0] == "project_morpheus_tpu_torch" or name in (
+                "benchmark.lib.program", "benchmark.lib.trace") or (
+                parts[:2] == ["benchmark", "families"] and parts[-1] == "program"):
+            yield name
 
 
 def test_no_module_imports_jax_or_the_jax_package():
@@ -74,12 +95,30 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 
 def test_reference_and_yardstick_import_nothing_of_the_program():
+    families = ROOT / "benchmark" / "families"
     own = [*(ROOT / "benchmark" / "reference").glob("*.py"),
            *(ROOT / "benchmark" / "lib" / n for n in ("traffic.py", "stats.py", "counts.py",
-                                                      "weights.py", "spec.py", "check.py"))]
+                                                      "weights.py", "spec.py", "check.py")),
+           *families.glob("*/weights.py"), *families.glob("*/reference.py"),
+           *families.glob("*/counts.py")]
+    assert len(list(families.glob("*/reference.py"))) >= 1
     for f in own:
-        for name in _imports(f):
-            assert name.split(".")[0] != "project_morpheus_tpu_torch", f"{f}: imports {name}"
+        assert list(_program_imports(f)) == [], f
+
+
+def test_import_guard_sees_a_family_file_reach_its_program(tmp_path):
+    """A reference that takes from its family's ``program.py`` by a
+    relative import is caught as an import of the program."""
+    fam = tmp_path / "benchmark" / "families" / "planted"
+    fam.mkdir(parents=True)
+    for plant in ("from .program import engine_inputs\n", "from . import program\n",
+                  "from ..llama.program import engine_inputs\n"):
+        ref = fam / "reference.py"
+        ref.write_text((ROOT / "benchmark/families/llama/reference.py").read_text() + plant)
+        assert list(_program_imports(ref, tmp_path)), plant
+    ref.write_text((ROOT / "benchmark/families/llama/reference.py").read_text()
+                   + "from .weights import dims\n")
+    assert list(_program_imports(ref, tmp_path)) == []
 
 
 def test_run_leaves_no_jax_loaded():

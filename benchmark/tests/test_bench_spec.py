@@ -50,6 +50,8 @@ def test_unknown_names_raise():
         spec.load_mix("no-such-mix")
     with pytest.raises(KeyError):
         spec.load_reader("no_such_metric.chat")
+    with pytest.raises(KeyError, match="families/no-such-family"):
+        spec.family({"family": "no-such-family"})
 
 
 def test_split_metrics_share_their_quantity_reader():
