@@ -42,12 +42,18 @@ Phases, each raising on failure (exit code 1, no result lines):
    on the (K, N) weight and on the K-major copy and ``torch.matmul`` on a
    pre-dequantized bf16 weight, and the quantize + GEMM pair with and
    without the dependent launch; the short rounds (32 and 128 rows)
-   weight by weight beside the K-major ``_int_mm``; then the five int8
+   weight by weight beside the K-major ``_int_mm``; then the decode
+   trunk's three kernels (``ops/decode_trunk.py``: residual add + RMSNorm,
+   RoPE + bf16 cache write, SwiGLU) at the 3B widths, 1, 8 and 16 slots,
+   against their plain twins (the add, v and SwiGLU bit for bit, the norm,
+   q and k within a bf16 ulp, the cache's other bytes untouched), each
+   timed beside its byte bound and the plain ops it replaced, and a
+   layer's chain between its attention calls both ways; then the five int8
    scales that divide by 127, card against CPU at 3B shapes, dividing by
    the number 127.0 (reported) and by a tensor (which must not differ);
-3. hold the port's decode path on the card (bf16, int8 weights, CUDA
-   kernels, int8 and bf16 caches) against the same path on the CPU (fp32,
-   plain twins) on a small model; then serve seeded requests on that model
+3. hold the port's decode path on the card (bf16, int8 weights as loaded
+   and fused as served, CUDA kernels, int8 and bf16 caches) against the
+   same path on the CPU (fp32, plain twins) on a small model; then serve seeded requests on that model
    with frame programs replayed from CUDA graphs and run eagerly, greedy
    and at temperature 0.9: the tokens must be identical; then the windowed
    SNAC decoder's batched path at full width (``phase_windows_batched``):
@@ -138,11 +144,16 @@ Kernel launch counts are zeroed just before the first run of phase 4 (the
 main path), just before phase 5, just before phase 7's first seeded
 load and just before phase 9's mesh engine (b) and each rank's TP engine
 (c), and read just after each; launches inside replayed
-CUDA graphs are counted through each graph's tally.  The last lines are the
+CUDA graphs are counted through each graph's tally.  Each of those loads
+must launch the trunk kernels its engine's decode step takes
+(``decode_trunk_parts``): add + norm and SwiGLU on an int8 cache (phases
+4, 7 and 9 (b)), all three on phase 5's bf16 cache, add + norm alone on
+the unfused weights of tensor parallelism (9 (c)).  The last lines are the
 GEMV's device ms a frame in the k=1 serving load, the card's name and power
 limit, one JSON line describing every kernel (the chunk-prefill attention
 the fourth, the w8a8 GEMM and quantize the fifth and sixth, each timed as
-one 1,024-row prefill round's 112 calls), and
+one 1,024-row prefill round's 112 calls, the trunk kernels the seventh to
+ninth, each timed at 8 slots), and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout of the repository, it exits non-zero before printing any result.
 """
@@ -726,34 +737,178 @@ def phase_w8a8(torch, dev):
     return [gemm, quant]
 
 
+TRUNK_NAMES = ("add_rmsnorm", "rope_kv_write", "swiglu")
+TRUNK_REPLACES = {
+    "add_rmsnorm": "project_morpheus_tpu/model/llama.py:45 (rmsnorm and the decode step's "
+                   "residual adds, fused by XLA, not a Pallas kernel)",
+    "rope_kv_write": "project_morpheus_tpu/model/llama.py:1044-1045 (apply_rope on q and k and "
+                     "the bf16 cache writes after them, fused by XLA, not a Pallas kernel)",
+    "swiglu": "project_morpheus_tpu/model/llama.py:637 (silu times up, fused by XLA, not a "
+              "Pallas kernel)",
+}
+
+
+def phase_trunk(torch, dev):
+    """The decode trunk's three kernels (``ops/decode_trunk.py``) at the
+    Orpheus-3B widths (D 3072, F 8192, 24 q and 8 kv heads of 128, an
+    8,192-position bf16 cache with slots at positions 0, S - 1 and random
+    ones), 1, 8 (served) and 16 slots, against their plain twins: the
+    residual add, v and SwiGLU bit for bit, the norm, q and k within one
+    bf16 ulp, every other byte of both caches untouched; then each timed
+    beside its byte bound and the plain ops it replaced, and a layer's
+    chain between its attention calls both ways
+    (``tools/time_kernels.trunk_timings``).  Returns the three kernels'
+    records."""
+    from project_morpheus_tpu_torch.model.llama import rope_inv_freqs
+    from project_morpheus_tpu_torch.ops import decode_trunk as dt
+    from project_morpheus_tpu_torch.tools import time_kernels as tk
+
+    cfg = tk.trunk_config("orpheus-3b")
+    D, F_, H, KV, HD, S, eps = (cfg.hidden_size, cfg.intermediate_size, cfg.num_heads,
+                                cfg.num_kv_heads, cfg.head_dim, 8192, cfg.rms_eps)
+    g = torch.Generator(device=dev).manual_seed(20)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(bf)
+
+    def ulp_err(got, want, what):
+        """Largest |got - want|; raises where it passes one bf16 ulp of want."""
+        err = (got.float() - want.float()).abs()
+        bad = err > 2.0**-7 * want.float().abs()
+        if bool(bad.any()):
+            raise AssertionError(f"{what}: {int(bad.sum())} values more than a bf16 ulp off, "
+                                 f"max err {err.max().item():.3e}")
+        return err.max().item()
+
+    def equal(got, want, what):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: not bit-equal, max err "
+                                 f"{(got.float() - want.float()).abs().max().item():.3e}")
+
+    inv = rope_inv_freqs(cfg, dev)
+    errs = dict.fromkeys(TRUNK_NAMES, 0.0)
+    dt.reset_launch_counts()
+    for rows in (1, 8, 16):
+        what = f"trunk kernels at 3B widths, {rows} slots"
+        x, d = rnd(rows, 1, D), rnd(rows, 1, D)
+        w = (torch.rand(D, generator=g, device=dev) + 0.5).to(bf)
+        xk = x.clone()
+        h = dt.add_rmsnorm(xk, d, w, eps)
+        xp, hp = dt.add_rmsnorm_plain(x, d, w, eps)
+        h0 = dt.add_rmsnorm(x, None, w, eps)
+        _, h0p = dt.add_rmsnorm_plain(x, None, w, eps)
+        qkv = rnd(rows, 1, (H + 2 * KV) * HD, scale=3.0)
+        lengths = torch.randint(0, S, (rows,), generator=g, device=dev, dtype=torch.int32)
+        lengths[0] = S - 1
+        if rows > 1:
+            lengths[1] = 0
+        ck, cv = rnd(2, rows, KV, S, HD), rnd(2, rows, KV, S, HD)
+        ckp, cvp, before = ck.clone(), cv.clone(), (ck.clone(), cv.clone())
+        q = dt.rope_kv_write(qkv, lengths, inv, ck, cv, 1)
+        qp = dt.rope_kv_write_plain(*dt.split_qkv(qkv, KV, HD), lengths, inv, ckp, cvp, 1)
+        gu = rnd(rows, 1, 2 * F_, scale=4.0)
+        act, actp = dt.swiglu(gu, F_), dt.swiglu_plain(gu, F_)
+        torch.cuda.synchronize()
+        equal(xk, xp, f"{what}: the residual add")
+        errs["add_rmsnorm"] = max(errs["add_rmsnorm"], ulp_err(h, hp, f"{what}: add + norm"),
+                                  ulp_err(h0, h0p, f"{what}: the norm alone"))
+        b, pos = torch.arange(rows, device=dev), lengths.long()
+        errs["rope_kv_write"] = max(errs["rope_kv_write"], ulp_err(q, qp, f"{what}: q"),
+                                    ulp_err(ck[1, b, :, pos], ckp[1, b, :, pos], f"{what}: k rows"))
+        equal(cv[1, b, :, pos], cvp[1, b, :, pos], f"{what}: v rows")
+        for got, old in zip((ck, cv), before):
+            got[1, b, :, pos] = old[1, b, :, pos]
+            equal(got, old, f"{what}: the cache besides the written rows")
+        equal(act, actp, f"{what}: swiglu")
+        del ck, cv, ckp, cvp, before
+    if dt.LAUNCHES != {"add_rmsnorm": 6, "rope_kv_write": 3, "swiglu": 3}:
+        raise AssertionError(f"trunk kernel launches {dt.LAUNCHES}")
+    torch.cuda.empty_cache()
+    log(f"trunk kernels vs twins at 3B widths, 1 / 8 / 16 slots: residual add, v rows and "
+        f"swiglu bit-equal; max abs err norm {errs['add_rmsnorm']:.3e}, q and k "
+        f"{errs['rope_kv_write']:.3e} (within a bf16 ulp)")
+
+    times = tk.trunk_timings(torch, dev, ["orpheus-3b"])["orpheus-3b"]
+    records = []
+    for name in TRUNK_NAMES:
+        r = times[name]
+        records.append(dict(name=name, route="cuda",
+                            source="project_morpheus_tpu_torch/ops/csrc/decode_trunk.cu",
+                            replaces=TRUNK_REPLACES[name], launches=0, max_abs_err=errs[name],
+                            ms=r["device_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                            bound_by="bytes", library_ms=None, host_us=r["host_us"],
+                            plain_launches=r["plain_launches"]))
+        log(f"kernel {name} ({times['rows']} slots): device {r['device_ms'] * 1e3:.2f} us/call, "
+            f"host {r['host_us']:.1f} us/call, bound {r['bound_ms'] * 1e3:.3f} us "
+            f"({100 * r['share']:.1f}%); the plain ops {r['plain_ms'] * 1e3:.2f} us in "
+            f"{r['plain_launches']:.1f} launches")
+    lay = times["layer"]
+    log(f"  a 3B layer's chain between its attention calls: {lay['device_ms'] * 1e3:.1f} us in "
+        f"{lay['launches']:.1f} launches, the plain ops {lay['plain_ms'] * 1e3:.1f} us in "
+        f"{lay['plain_launches']:.1f}")
+    return records
+
+
+def trunk_parts(eng):
+    """The parts of ``eng``'s decode step (add + norm, RoPE + write,
+    SwiGLU) that run as the trunk kernels (``decode_trunk_parts``)."""
+    from project_morpheus_tpu_torch.model.llama import decode_trunk_parts
+
+    return decode_trunk_parts(eng.params, eng.tp.local_cfg(eng.cfg), eng.cache,
+                              eng._slots.stop - eng._slots.start)
+
+
+def note_trunk_launches(records, launches, parts, want, key, what):
+    """The trunk kernels in a serving load: ``parts`` must be ``want``, and
+    each kernel whose part is on must have launched, the others not; the
+    counts go into the kernels' records under ``key``."""
+    if tuple(parts) != want:
+        raise AssertionError(f"{what}: trunk parts {parts}, expected {want}")
+    for name, on in zip(TRUNK_NAMES, parts):
+        if (launches[name] > 0) != on:
+            raise AssertionError(f"{what}: {name} launched {launches[name]} times with its part "
+                                 f"{'on' if on else 'off'}: {launches}")
+        next(r for r in records if r["name"] == name)[key] = launches[name]
+
+
 # ------------------------------------------------------------ phase 3
 
 
 def phase_reference(torch, dev):
-    """Decode path on the card (bf16, kernels) vs on the CPU (fp32, twins)."""
+    """Decode path on the card (bf16, kernels) vs on the CPU (fp32, twins),
+    with the card's weights as loaded (the trunk's add + norm kernel alone)
+    and fused as the engine serves them (with SwiGLU, and on a bf16 cache
+    RoPE + write)."""
     from project_morpheus_tpu_torch.model import LlamaConfig
     from project_morpheus_tpu_torch.model import llama
-    from project_morpheus_tpu_torch.model.quant import add_k_major_copies, quantize_params_int8
+    from project_morpheus_tpu_torch.model.quant import (
+        add_k_major_copies, fuse_layer_weights, quantize_params_int8)
+    from project_morpheus_tpu_torch.ops import decode_trunk as dt
 
     cfg = LlamaConfig(vocab_size=1024, hidden_size=256, intermediate_size=512, num_layers=2,
                       num_heads=6, num_kv_heads=2, head_dim=128, max_seq_len=512,
                       rope_scaling_factor=1.0)
     cpu_params = quantize_params_int8(llama.init_llama_params(cfg, 7, "cpu", torch.float32))
 
-    card_params = add_k_major_copies({
+    card_bare = {
         "embed": {k: v.to(dev) for k, v in cpu_params["embed"].items()},
         "ln_f": cpu_params["ln_f"].to(dev, torch.bfloat16),
         "layers": {k: ({"q": v["q"].to(dev), "scale": v["scale"].to(dev)} if isinstance(v, dict)
                        else v.to(dev, torch.bfloat16))
                    for k, v in cpu_params["layers"].items()},
-    })
+    }
+    card = {"unfused": add_k_major_copies(card_bare),
+            "fused": add_k_major_copies(fuse_layer_weights(card_bare))}
     g = torch.Generator().manual_seed(3)
     prompt = torch.randint(3, 1000, (2, 40), generator=g, dtype=torch.int32)
     steps = torch.randint(3, 1000, (3, 2), generator=g, dtype=torch.int32)
     worst = 0.0
     for cache_dtype in (torch.int8, torch.bfloat16):
-        outs = []
-        for params, d in ((card_params, dev), (cpu_params, torch.device("cpu"))):
+        name = "int8" if cache_dtype == torch.int8 else "bf16"
+        outs = {}
+        for tag, params, d in (("cpu", cpu_params, torch.device("cpu")),
+                               ("unfused", card["unfused"], dev), ("fused", card["fused"], dev)):
             cdt = cache_dtype if cache_dtype == torch.int8 or d.type == "cuda" else torch.float32
             cache = llama.init_kv_cache(cfg, 2, 512, cdt, d)
             logits = []
@@ -761,17 +916,28 @@ def phase_reference(torch, dev):
                 logits.append(llama.llama_prefill_chunk(
                     params, prompt[b].to(d), cfg, cache, 0, b, 40, hist_bucket=64, w8a8=True))
             lengths = torch.full((2,), 40, dtype=torch.int32, device=d)
+            dt.reset_launch_counts()
             for s in range(3):
                 logits += list(llama.llama_decode_step(
                     params, steps[s].to(d), cfg, cache, lengths, attn_impl="kernel"))
                 lengths = lengths + 1
-            outs.append(torch.stack(logits).float().cpu())
-        rel = ((outs[0] - outs[1]).norm() / outs[1].norm()).item()
-        worst = max(worst, rel)
-        name = "int8" if cache_dtype == torch.int8 else "bf16"
-        if not (torch.isfinite(outs[0]).all() and rel < 5e-2):
-            raise AssertionError(f"card vs CPU logits, {name} cache: relative L2 error {rel:.3e}")
-        log(f"reference ({name} cache): card vs CPU logits relative L2 error {rel:.3e} (limit 5e-2)")
+            outs[tag] = torch.stack(logits).float().cpu()
+            if d.type == "cuda":
+                fused = tag == "fused"
+                want = {"add_rmsnorm": 3 * (2 * cfg.num_layers + 1),
+                        "rope_kv_write": 3 * cfg.num_layers * (fused and name == "bf16"),
+                        "swiglu": 3 * cfg.num_layers * fused}
+                if dt.LAUNCHES != want:
+                    raise AssertionError(f"reference ({name} cache, {tag} weights): trunk "
+                                         f"launches {dt.LAUNCHES}, expected {want}")
+        for tag in ("unfused", "fused"):
+            rel = ((outs[tag] - outs["cpu"]).norm() / outs["cpu"].norm()).item()
+            worst = max(worst, rel)
+            if not (torch.isfinite(outs[tag]).all() and rel < 5e-2):
+                raise AssertionError(f"card vs CPU logits, {name} cache, {tag} weights: "
+                                     f"relative L2 error {rel:.3e}")
+            log(f"reference ({name} cache, {tag} weights): card vs CPU logits relative L2 error "
+                f"{rel:.3e} (limit 5e-2)")
     return worst
 
 
@@ -1019,6 +1185,7 @@ async def serving_phases(card: str, records) -> str:
     from project_morpheus_tpu_torch.model.quant import add_k_major_copies
     from project_morpheus_tpu_torch.model.tokenizer import format_prompt_ids
     da = importlib.import_module("project_morpheus_tpu_torch.ops.decode_attention")
+    from project_morpheus_tpu_torch.ops import decode_trunk as dt
     from project_morpheus_tpu_torch.ops import int8_gemv as ig
     from project_morpheus_tpu_torch.ops import prefill_attention as pa
     from project_morpheus_tpu_torch.ops import w8a8_gemm as wg
@@ -1069,11 +1236,15 @@ async def serving_phases(card: str, records) -> str:
     ig.reset_launch_counts()
     pa.reset_launch_counts()
     wg.reset_launch_counts()
+    dt.reset_launch_counts()
     replays0 = prefill_replays()
     with round_timer(eng) as rounds:
         out, traces1 = await measured_load(torch, eng, prompts, TOKENS_PER_REQUEST, seeds,
                                            "k=1 (main path)", card)
-    launches = {**da.LAUNCHES, **ig.LAUNCHES, **pa.LAUNCHES, **wg.LAUNCHES}
+    launches = {**da.LAUNCHES, **ig.LAUNCHES, **pa.LAUNCHES, **wg.LAUNCHES, **dt.LAUNCHES}
+    # int8 cache: add + norm and SwiGLU as kernels, RoPE and the writes plain
+    note_trunk_launches(records, launches, trunk_parts(eng), (True, False, True), "launches",
+                        "3b int8 serving")
     for i, (pcm, _) in enumerate(out):
         check_pcm(np, pcm, TOKENS_PER_REQUEST // 7, 2 * fs, f"3b request {i}")
     for name in ("decode_attention_int8_slots", "int8_gemv", "prefill_chunk_attention",
@@ -1181,9 +1352,12 @@ async def serving_phases(card: str, records) -> str:
                             banded_sampling=True)
     rt.set_runtime(rt4)
     da.reset_launch_counts()
+    dt.reset_launch_counts()
     out4, wall4, _ = await serve(["Bf16 cache decode.", "Second stream."], 7 * 8)
     torch.cuda.synchronize()
-    launches4 = dict(da.LAUNCHES)
+    launches4 = {**da.LAUNCHES, **dt.LAUNCHES}
+    note_trunk_launches(records, launches4, trunk_parts(rt4.engine), (True, True, True),
+                        "bf16_cache_launches", "3b widths, bf16 cache")
     for i, (pcm, _) in enumerate(out4):
         check_pcm(np, pcm, 8, 2 * fs, f"bf16-cache request {i}")
     if launches4["decode_attention_layered"] <= 0:
@@ -1540,6 +1714,7 @@ async def phase_checkpoint(card: str, records) -> None:
     from project_morpheus_tpu_torch.model.llama import init_llama_params
     from project_morpheus_tpu_torch.model.tokenizer import BPETokenizer, format_prompt_ids
     da = importlib.import_module("project_morpheus_tpu_torch.ops.decode_attention")
+    from project_morpheus_tpu_torch.ops import decode_trunk as dt
     from project_morpheus_tpu_torch.ops import int8_gemv as ig
     from project_morpheus_tpu_torch.ops import w8a8_gemm as wg
 
@@ -1613,11 +1788,12 @@ async def phase_checkpoint(card: str, records) -> None:
                 da.reset_launch_counts()
                 ig.reset_launch_counts()
                 wg.reset_launch_counts()
+                dt.reset_launch_counts()
             t0 = time.perf_counter()
             out, wall, traces = await serve(list(CKPT_PROMPTS), 7 * 24, seeds)
             torch.cuda.synchronize()
             if name == "loaded":
-                launches = {**da.LAUNCHES, **ig.LAUNCHES, **wg.LAUNCHES}
+                launches = {**da.LAUNCHES, **ig.LAUNCHES, **wg.LAUNCHES, **dt.LAUNCHES}
             results[name] = (out, traces)
             for i, (pcm, _) in enumerate(out):
                 check_pcm(np, pcm, 24, 2 * fs, f"{name} request {i}")
@@ -1630,8 +1806,10 @@ async def phase_checkpoint(card: str, records) -> None:
         records[2]["checkpoint_launches"] = launches["int8_gemv"]
         records[4]["checkpoint_launches"] = launches["w8a8_gemm"]
         records[5]["checkpoint_launches"] = launches["w8a8_quantize"]
-        (lo, lt), (do, dt) = results["loaded"], results["direct"]
-        if lt != dt or any(len(t) == 0 for t in lt):
+        note_trunk_launches(records, launches, trunk_parts(loaded_rt.engine), (True, False, True),
+                            "checkpoint_launches", "serving loaded weights")
+        (lo, lt), (do, dtr) = results["loaded"], results["direct"]
+        if lt != dtr or any(len(t) == 0 for t in lt):
             raise AssertionError("token traces differ between loaded and direct params")
         if any(a[0] != b[0] for a, b in zip(lo, do)):
             raise AssertionError("PCM differs between loaded and direct params")
@@ -2326,6 +2504,7 @@ async def phase_mesh_serving(card: str, torch, records) -> None:
     from project_morpheus_tpu_torch.adapters import runtime as rt
     from project_morpheus_tpu_torch.engine import OrpheusEngine
     da = importlib.import_module("project_morpheus_tpu_torch.ops.decode_attention")
+    from project_morpheus_tpu_torch.ops import decode_trunk as dt
     from project_morpheus_tpu_torch.ops import int8_gemv as ig
     from project_morpheus_tpu_torch.ops import prefill_attention as pa
     from project_morpheus_tpu_torch.ops import w8a8_gemm as wg
@@ -2348,10 +2527,11 @@ async def phase_mesh_serving(card: str, torch, records) -> None:
     ig.reset_launch_counts()
     pa.reset_launch_counts()
     wg.reset_launch_counts()
+    dt.reset_launch_counts()
     torch.cuda.synchronize()
     _, wall_m, got = await serve(list(PROMPTS), TOKENS_PER_REQUEST, seeds)
     torch.cuda.synchronize()
-    launches = {**da.LAUNCHES, **ig.LAUNCHES, **pa.LAUNCHES, **wg.LAUNCHES}
+    launches = {**da.LAUNCHES, **ig.LAUNCHES, **pa.LAUNCHES, **wg.LAUNCHES, **dt.LAUNCHES}
     if got != ref or any(len(t) == 0 for t in ref):
         where = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
                  for a, b in zip(ref, got)]
@@ -2368,6 +2548,9 @@ async def phase_mesh_serving(card: str, torch, records) -> None:
     records[2]["mesh_launches"] = launches["int8_gemv"]
     records[3]["mesh_launches"] = launches["prefill_chunk_attention"]
     records[4]["mesh_launches"] = launches["w8a8_gemm"]
+    # a 1 x 1 mesh fuses its weights as the unsharded engine does (int8 cache)
+    note_trunk_launches(records, launches, trunk_parts(mesh_eng), (True, False, True),
+                        "mesh_launches", "mesh engine")
     log(f"mesh (b): 3B int8 engine on a 1 x 1 mesh over {STATE.backend} (world of one, "
         f"collectives in the {mesh_eng.programs.captures} captured graphs, "
         f"{len(prefill)} of them prefill rounds, "
@@ -2480,6 +2663,7 @@ def tp2_main(device: str = "cuda", cfg=None) -> int:
     from project_morpheus_tpu_torch.ops import build, int8_gemv as ig
 
     da = importlib.import_module("project_morpheus_tpu_torch.ops.decode_attention")
+    from project_morpheus_tpu_torch.ops import decode_trunk as dt
     from project_morpheus_tpu_torch.ops import w8a8_gemm as wg
     from project_morpheus_tpu_torch.parallel import initialize_distributed, make_mesh
     from project_morpheus_tpu_torch.parallel.mesh import STATE
@@ -2576,14 +2760,15 @@ def tp2_main(device: str = "cuda", cfg=None) -> int:
     da.reset_launch_counts()
     ig.reset_launch_counts()
     wg.reset_launch_counts()
+    dt.reset_launch_counts()
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     sync()
     t0 = time.perf_counter()
     traces = asyncio.run(run_engine(eng))
     sync()
     wall = time.perf_counter() - t0
-    out.update(traces=traces, steps=eng.steps, wall=wall,
-               launches={**da.LAUNCHES, **ig.LAUNCHES, **wg.LAUNCHES})
+    out.update(traces=traces, steps=eng.steps, wall=wall, trunk_parts=trunk_parts(eng),
+               launches={**da.LAUNCHES, **ig.LAUNCHES, **wg.LAUNCHES, **dt.LAUNCHES})
     if rank == 0:
         ref_eng = OrpheusEngine(full, cfg, ecfg, device=device)
         out["ref_traces"] = asyncio.run(run_engine(ref_eng))
@@ -2666,6 +2851,10 @@ def phase_tp2(card: str, records, device: str = "cuda", cfg=None,
     records[2]["tp2_launches_a_rank"] = r0["launches"]["int8_gemv"]
     if device == "cuda":
         records[4]["tp2_launches_a_rank"] = r0["launches"]["w8a8_gemm"]
+        # unfused weights under tensor parallelism: the add + norm kernel alone
+        for r in res:
+            note_trunk_launches(records, r["launches"], r["trunk_parts"], (True, False, False),
+                                "tp2_launches_a_rank", f"tp2 rank {r['rank']}")
     gemv = ", ".join(f"{k} {v:.2e}" for k, v in r0["gemv"].items())
     log(f"tp2 (c): 2 ranks on one card over gloo (host-staged collectives, frame programs "
         f"eager), {'Orpheus-3B full width' if cfg is None else cfg}, int8 weights and KV, tp=2, slot kernel on 4 kv heads "
@@ -2833,6 +3022,7 @@ def run(card: str) -> None:
     records.append(phase_gemv(torch, dev))
     records.append(phase_prefill_kernel(torch, dev))
     records.extend(phase_w8a8(torch, dev))
+    records.extend(phase_trunk(torch, dev))
     phase_int8_scales(torch, dev)
     phase_reference(torch, dev)
     phase_graphs(torch, dev)

@@ -65,7 +65,12 @@ import torch
 
 from ..codec.stream_decode import EMIT_SLOT, WINDOW_FRAMES, snac_stream_body
 from ..model.config import LlamaConfig, ORPHEUS_SPECIAL_TOKENS
-from ..model.llama import init_kv_cache, llama_decode_step, llama_prefill_chunk_batch
+from ..model.llama import (
+    decode_trunk_parts,
+    init_kv_cache,
+    llama_decode_step,
+    llama_prefill_chunk_batch,
+)
 from ..model.quant import add_k_major_copies, fuse_layer_weights, is_quantized
 from ..model.sampling import SamplingParams, sample_logits
 from ..parallel.tensor import NO_TP, tensor_parallel
@@ -847,6 +852,16 @@ class OrpheusEngine:
             return "kernel"
         return "dense"
 
+    def _trunk_path(self) -> str:
+        """"kernel" where the decode step's whole elementwise chain (add +
+        norm, RoPE + cache write, SwiGLU) runs as the trunk kernels (on the
+        CPU their twins: ``model/llama.py: decode_trunk_parts``), else
+        "plain": any part of it as plain ops (an int8 cache, unfused
+        weights under tensor parallelism, fp32 activations)."""
+        n_local = self._slots.stop - self._slots.start
+        parts = decode_trunk_parts(self.params, self.tp.local_cfg(self.cfg), self.cache, n_local)
+        return "kernel" if all(parts) else "plain"
+
     # -------------------------------------------------- the frame program
 
     def _decode_core(self, attn_impl: str, bucket, banded: bool,
@@ -1002,6 +1017,7 @@ class OrpheusEngine:
             outs = self._run_program(bucket, k, audio)
             if self.trace is not None:
                 self.trace.counters[f"attn_{self._attn_for(bucket)}_frames"] += k
+                self.trace.counters[f"trunk_{self._trunk_path()}_frames"] += k
             names = ("toks", "pcm", "emit") if audio else ("toks",)
             return dict(zip(names + ("stamps",), outs)), dict(self._by_slot)
 

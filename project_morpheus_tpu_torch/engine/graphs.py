@@ -32,11 +32,11 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
-from ..ops import int8_gemv, prefill_attention, stamp, w8a8_gemm
+from ..ops import decode_trunk, int8_gemv, prefill_attention, stamp, w8a8_gemm
 from ..ops.decode_attention import LAUNCHES as _DECODE_ATTENTION_LAUNCHES
 
 _COUNTERS = (_DECODE_ATTENTION_LAUNCHES, int8_gemv.LAUNCHES, prefill_attention.LAUNCHES,
-             w8a8_gemm.LAUNCHES, stamp.LAUNCHES)
+             w8a8_gemm.LAUNCHES, decode_trunk.LAUNCHES, stamp.LAUNCHES)
 
 
 def _snapshot() -> List[Dict[str, int]]:

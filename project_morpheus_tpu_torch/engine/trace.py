@@ -34,7 +34,11 @@ everything stays in memory (nothing is written or printed):
   frame) and ``lanes_emitted`` (the tokens routed from them);
   ``attn_kernel_frames`` and ``attn_dense_frames``, the frames dispatched
   whose decode attention resolved to the CUDA kernels or to the dense
-  branch (``OrpheusEngine._attn_for``).
+  branch (``OrpheusEngine._attn_for``); ``trunk_kernel_frames`` and
+  ``trunk_plain_frames``, the frames dispatched whose decode steps ran
+  the whole elementwise chain between the projections as the trunk
+  kernels of ``ops/decode_trunk.py``, or some of it as plain ops
+  (``OrpheusEngine._trunk_path``).
 """
 from __future__ import annotations
 

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import decode_trunk as trunk_ops
 from ..ops.decode_attention import (
     decode_attention_int8_slots,
     decode_attention_layered,
@@ -168,7 +169,7 @@ def _mlp(h, wl, cfg: LlamaConfig, mm=matmul_maybe_quant, mm_down=None):
     if "wgu" in wl:
         gu = mm(h, wl["wgu"])
         F_ = cfg.intermediate_size
-        act = F.silu(gu[..., :F_]) * gu[..., F_:]
+        act = trunk_ops.swiglu_plain(gu, F_)
     else:
         act = F.silu(mm(h, wl["wg"])) * mm(h, wl["wu"])
     return (mm_down or mm)(act, wl["wd"])
@@ -308,6 +309,31 @@ def _int_dot(a: torch.Tensor, b: torch.Tensor, eq: str) -> torch.Tensor:
     return torch.einsum(eq, a.double(), b.double())
 
 
+def _act_dtype(params: Params) -> torch.dtype:
+    """The decode step's activation dtype: the embedding lookup's."""
+    embed = params["embed"]
+    return params["ln_f"].dtype if is_quantized(embed) else embed.dtype
+
+
+def decode_trunk_parts(params: Params, cfg: LlamaConfig, cache: KVCache,
+                       rows: int) -> Tuple[bool, bool, bool]:
+    """Which parts of :func:`llama_decode_step`'s elementwise chain go
+    through ``ops/decode_trunk.py`` (on the card its kernels, on the CPU
+    their twins, the plain path's ops): (residual add + RMSNorm, RoPE +
+    bf16 cache write, SwiGLU).  Each needs bf16 activations and norm
+    weights and at most ``MAX_ROWS`` slots; RoPE a fused ``wqkv`` and a
+    bf16 cache; SwiGLU a fused ``wgu``; each a width its kernel takes.
+    ``cfg`` is the rank's (``tp.local_cfg``)."""
+    lp = params["layers"]
+    bf16 = torch.bfloat16
+    ok = (_act_dtype(params) == bf16 and rows <= trunk_ops.MAX_ROWS
+          and lp["ln1"].dtype == lp["ln2"].dtype == params["ln_f"].dtype == bf16)
+    return (ok and trunk_ops.norm_supported(cfg.hidden_size),
+            ok and "wqkv" in lp and cache["k"].dtype == bf16
+            and trunk_ops.rope_supported(cfg.head_dim),
+            ok and "wgu" in lp and trunk_ops.swiglu_supported(cfg.intermediate_size))
+
+
 @torch.no_grad()
 def llama_decode_step(
     params: Params,
@@ -329,52 +355,72 @@ def llama_decode_step(
     Three attention branches, as in the JAX step: ``kernel`` (the slot
     int8 kernel on an int8 cache, the layered kernel on a bf16 one), dense
     int8 (int8 q.k and requantised probs, exact integer dots), dense bf16.
-    ``stamp``, where given, marks each layer's attention branch in stream
-    order: ``"attn_in"`` before it, ``"attn_out"`` after it.
+    The chain between the projections runs as the trunk kernels where
+    :func:`decode_trunk_parts` says (the residual then lives in one tensor
+    updated in place), else as their plain twins (``ops/decode_trunk.py``);
+    the two give the same bits on the CPU.  Every ``lengths[b]`` must lie
+    below the cache's capacity: past it the plain write raises and the
+    kernel drops the write (the engine's budget, ``allowed``, ends each
+    request two positions short of ``max_seq_len``, and an idle slot sits
+    at 0).  ``stamp``, where given, marks each layer's attention branch in
+    stream order: ``"attn_in"`` before it, ``"attn_out"`` after it.
     """
     B = tokens.shape[0]
     tp = as_tp(tp)
     cfg = tp.local_cfg(cfg)
     quant = kv_cache_is_quantized(cache)
     S = cache["k"].shape[2 if quant else 3]
-    KV, HD = cfg.num_kv_heads, cfg.head_dim
+    KV, HD, L = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
     DKV, G = KV * HD, cfg.num_heads // KV
     bkt = min(bucket or S, S)
     dev = tokens.device
+    eps = cfg.rms_eps
+    fused_norm, fused_rope, fused_mlp = decode_trunk_parts(params, cfg, cache, B)
     inv_freqs = rope_inv_freqs(cfg, dev)
     x = tp.embed(params["embed"], tokens[:, None], params["ln_f"].dtype)  # (B, 1, D)
-    positions = lengths[:, None]
-    pos_l = lengths.long()
-    slots = torch.arange(B, device=dev)
-    key_mask = torch.arange(bkt, device=dev)[None, :] <= lengths[:, None]  # (B, bkt)
+    if quant:
+        positions = lengths[:, None]
+        pos_l = lengths.long()
+        slots = torch.arange(B, device=dev)
+    if attn_impl != "kernel":
+        key_mask = torch.arange(bkt, device=dev)[None, :] <= lengths[:, None]  # (B, bkt)
     live = lengths + 1  # positions each kernel attends, the new token's included
+
+    def add_norm(x, d, w):
+        """``x + d`` (where given) and its RMSNorm by ``w``: (x, h)."""
+        if fused_norm:
+            return x, trunk_ops.add_rmsnorm(x, d, w, eps)  # x += d in place
+        return trunk_ops.add_rmsnorm_plain(x, d, w, eps)
+
     lp = params["layers"]
-    for i in range(cfg.num_layers):
+    x, h = add_norm(x, None, lp["ln1"][0])
+    for i in range(L):
         wl = _layer(lp, i)
-        h = rmsnorm(x, wl["ln1"], cfg.rms_eps)
-        q, k, v = _project_qkv(tp.enter(h), wl, cfg)
-        q = apply_rope(q, positions, inv_freqs)
-        k = apply_rope(k, positions, inv_freqs)
-        # every slot's new K/V at lengths[b], one indexed write per tensor
-        if quant:
+        # q (B, H, HD) rotated; every slot's new K/V at lengths[b]
+        if fused_rope:
+            qkv = matmul_maybe_quant(tp.enter(h), wl["wqkv"])
+            q = trunk_ops.rope_kv_write(qkv, lengths, inv_freqs, cache["k"], cache["v"], i)
+        elif quant:
+            q, k, v = _project_qkv(tp.enter(h), wl, cfg)
+            q = apply_rope(q, positions, inv_freqs)[:, 0].contiguous()
+            k = apply_rope(k, positions, inv_freqs)
             kq, ksc = quantize_kv(k[:, 0])  # (B, KV, HD), (B, KV)
             vq, vsc = quantize_kv(v[:, 0])
             cache["k"][i, slots, pos_l] = kq.reshape(B, DKV)
             cache["v"][i, slots, pos_l] = vq.reshape(B, DKV)
             cache["scale"][i, slots, pos_l] = torch.cat([ksc, vsc], dim=-1)
         else:
-            cache["k"][i, slots, :, pos_l] = k[:, 0].to(cache["k"].dtype)
-            cache["v"][i, slots, :, pos_l] = v[:, 0].to(cache["v"].dtype)
+            q = trunk_ops.rope_kv_write_plain(*_project_qkv(tp.enter(h), wl, cfg), lengths,
+                                              inv_freqs, cache["k"], cache["v"], i)
 
         if stamp is not None:
             stamp("attn_in")
         if attn_impl == "kernel":
-            q0 = q[:, 0].contiguous()
             if quant:
                 attn = decode_attention_int8_slots(
-                    q0, cache["k"], cache["v"], cache["scale"], live, i)
+                    q, cache["k"], cache["v"], cache["scale"], live, i)
             else:
-                attn = decode_attention_layered(q0, cache["k"], cache["v"], live, i)
+                attn = decode_attention_layered(q, cache["k"], cache["v"], live, i)
             attn = attn.reshape(B, 1, cfg.num_heads * HD).to(x.dtype)
         elif quant:
             k_s = cache["k"][i, :, :bkt].reshape(B, bkt, KV, HD)
@@ -407,11 +453,16 @@ def llama_decode_step(
             ).reshape(B, 1, cfg.num_heads * HD).to(dt)
         if stamp is not None:
             stamp("attn_out")
-        x = x + tp.reduce(matmul_maybe_quant(attn, wl["wo"]))
-        h = rmsnorm(x, wl["ln2"], cfg.rms_eps)
-        x = x + tp.reduce(_mlp(tp.enter(h), wl, cfg))
-    x = rmsnorm(x[:, 0], params["ln_f"], cfg.rms_eps)
-    logits = tp.gather_vocab(lm_head_logits(params, x, tp))
+        x, h = add_norm(x, tp.reduce(matmul_maybe_quant(attn, wl["wo"])), wl["ln2"])
+        if fused_mlp:
+            act = trunk_ops.swiglu(matmul_maybe_quant(tp.enter(h), wl["wgu"]),
+                                   cfg.intermediate_size)
+            d = matmul_maybe_quant(act, wl["wd"])
+        else:
+            d = _mlp(tp.enter(h), wl, cfg)
+        # the MLP's add goes into the next layer's ln1, the last one's into ln_f
+        x, h = add_norm(x, tp.reduce(d), lp["ln1"][i + 1] if i + 1 < L else params["ln_f"])
+    logits = tp.gather_vocab(lm_head_logits(params, h[:, 0], tp))
     if active is not None:
         logits = torch.where(active[:, None], logits, torch.zeros_like(logits))
     return logits

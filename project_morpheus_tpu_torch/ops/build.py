@@ -25,7 +25,7 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("decode_attention_layered.cu", "decode_attention_int8_slots.cu", "int8_gemv.cu",
-           "prefill_chunk_attention.cu", "w8a8_gemm.cu", "stamp.cu")
+           "prefill_chunk_attention.cu", "w8a8_gemm.cu", "stamp.cu", "decode_trunk.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,6 +1,6 @@
 """Device time of the kernels, apart from their wrappers' host time.
 
-    python -m project_morpheus_tpu_torch.tools.time_kernels [prefill | w8a8]
+    python -m project_morpheus_tpu_torch.tools.time_kernels [prefill | w8a8 | trunk [MODEL ...]]
     python -m project_morpheus_tpu_torch.tools.time_kernels w8a8-ab TAG [ROWS]
 
 At the Orpheus-3B serving shapes (28 layers, 8 slots x 8192, KV=8, HD=128,
@@ -54,6 +54,11 @@ a programmatic dependent of the quantize and without.  The port never
 calls the yardsticks.  Prints the records as text and one JSON line.  It
 needs a CUDA card and fails without one.
 
+With ``trunk [MODEL ...]`` it checks and times the decode trunk's three
+kernels and the plain op chains they replaced at ``TRUNK_CONFIGS``
+(``trunk_timings``), then a layer's whole chain between its attention
+calls both ways, and prints the records as text and one JSON line.
+
 With ``w8a8-ab TAG [ROWS]`` (rows comma-separated, default ``W8A8_ROWS``)
 it prints ``TAG`` and one JSON object of the GEMM's and the quantize's
 device ms a call (``w8a8_ab_times``) at the four 3B weights: copied into a
@@ -100,6 +105,25 @@ TRUNK_SHAPES = {
         "floor": [1] * 8,
     },
 }
+
+# the trunk kernels' widths (ops/decode_trunk.py): the benchmark trunks and
+# Orpheus-3B, as LlamaConfig fields beside the slots each serves
+TRUNK_CONFIGS = {
+    "smollm2-1.7b": (16, dict(num_layers=24, hidden_size=2048, intermediate_size=8192,
+                              num_heads=32, num_kv_heads=32, head_dim=64, rope_theta=130000.0,
+                              rope_scaling_factor=1.0)),
+    "mistral-7b-v0.3": (8, dict(num_layers=32, hidden_size=4096, intermediate_size=14336,
+                                num_heads=32, num_kv_heads=8, head_dim=128, rope_theta=1e6,
+                                rope_scaling_factor=1.0)),
+    "orpheus-3b": (8, {}),
+}
+
+
+def trunk_config(name: str, **kw):
+    """The ``LlamaConfig`` of a ``TRUNK_CONFIGS`` model, ``kw`` overriding."""
+    from ..model import LlamaConfig
+
+    return LlamaConfig(**{**TRUNK_CONFIGS[name][1], **kw})
 
 
 def decode_bytes(lens, KV: int, HD: int, S: int, H: int, quant: bool = False) -> int:
@@ -525,6 +549,140 @@ def layered_timings(torch, da, dev, dims, shapes) -> dict:
     return out
 
 
+def trunk_bytes(rows: int, cfg) -> dict:
+    """Bytes each trunk kernel's call needs: its inputs read once and its
+    outputs written once (``ops/decode_trunk.py``)."""
+    D, F_, H, KV, HD = (cfg.hidden_size, cfg.intermediate_size, cfg.num_heads,
+                        cfg.num_kv_heads, cfg.head_dim)
+    return {"add_rmsnorm": 2 * (4 * rows * D + D),  # x, d, w in; x, h out
+            "rope_kv_write": 2 * rows * ((H + 2 * KV) * HD * 2) + 4 * rows + 2 * HD,
+            "swiglu": 2 * rows * 3 * F_}
+
+
+def kernel_launches(fn, calls: int = 4) -> float:
+    """CUDA kernels (and copies) launched a ``fn(i)``, from the torch
+    profiler's trace of ``calls`` eager calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(i)
+        torch.cuda.synchronize()
+    n = 0
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us > 0:
+            n += evt.count
+    return n / calls
+
+
+def trunk_timings(torch, dev, models=None) -> dict:
+    """The trunk kernels (``ops/decode_trunk.py``) at ``TRUNK_CONFIGS``'
+    widths and slots, each checked against its twin and then timed
+    (``timings``; ``graph_ms`` over ``GRAPH_CALLS`` calls, the model's
+    layers cycled) beside its byte bound (``trunk_bytes`` at 3.35 TB/s),
+    the plain op chain it replaced (graph-timed the same way) and the
+    launches a call of each; then a layer's whole chain between its
+    attention calls (add + norm, the wqkv GEMV, RoPE + write, the wo GEMV,
+    add + norm, the wgu GEMV, SwiGLU, the wd GEMV) over random int8 weights
+    of every layer, through the kernels and through the plain ops.  Returns
+    {model: {name: record}}."""
+    from ..model import llama as tl
+    from ..ops import decode_trunk as dt
+    from ..ops import int8_gemv as ig
+
+    out = {}
+    for model in models or TRUNK_CONFIGS:
+        rows = TRUNK_CONFIGS[model][0]
+        cfg = trunk_config(model)
+        L_, D, F_, H_, KV_, HD_ = (cfg.num_layers, cfg.hidden_size, cfg.intermediate_size,
+                                   cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+        S_, eps, bf = 8192, cfg.rms_eps, torch.bfloat16
+        g = torch.Generator(device=dev).manual_seed(2)
+
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=g, device=dev) * scale).to(bf)
+
+        x, d, ws = rnd(rows, 1, D), rnd(rows, 1, D) * 0.01, rnd(L_, D) * 0.1 + 1
+        qkv, gu = rnd(rows, 1, (H_ + 2 * KV_) * HD_, scale=3.0), rnd(rows, 1, 2 * F_, scale=4.0)
+        lengths = torch.randint(60, 2800, (rows,), generator=g, device=dev, dtype=torch.int32)
+        inv = tl.rope_inv_freqs(cfg, dev)
+        ck, cv = rnd(L_, rows, KV_, S_, HD_), rnd(L_, rows, KV_, S_, HD_)
+
+        def split(qkv):
+            return dt.split_qkv(qkv, KV_, HD_)
+
+        cases = {
+            "add_rmsnorm": (lambda i: dt.add_rmsnorm(x, d, ws[i % L_], eps),
+                            lambda i: tl.rmsnorm(x + d, ws[i % L_], eps),
+                            lambda: (dt.add_rmsnorm(x.clone(), d, ws[0], eps),
+                                     tl.rmsnorm(x + d, ws[0], eps))),
+            "rope_kv_write": (lambda i: dt.rope_kv_write(qkv, lengths, inv, ck, cv, i % L_),
+                              lambda i: dt.rope_kv_write_plain(*split(qkv), lengths, inv, ck, cv,
+                                                               i % L_),
+                              lambda: (dt.rope_kv_write(qkv, lengths, inv, ck, cv, 0),
+                                       dt.rope_kv_write_plain(*split(qkv), lengths, inv, ck, cv,
+                                                              0))),
+            "swiglu": (lambda i: dt.swiglu(gu, F_), lambda i: dt.swiglu_plain(gu, F_),
+                       lambda: (dt.swiglu(gu, F_), dt.swiglu_plain(gu, F_))),
+        }
+        bytes_ = trunk_bytes(rows, cfg)
+        recs = {}
+        for name, (kern, plain, pair) in cases.items():
+            got, want = pair()
+            err = (got.float() - want.float()).abs()
+            rec = dict(timings(kern), bound_ms=bytes_[name] / 3.35e9,
+                       plain_ms=graph_ms(plain), launches=kernel_launches(kern),
+                       plain_launches=kernel_launches(plain),
+                       equal_share=float((got == want).float().mean()),
+                       max_rel_err=float((err / want.float().abs().clamp(min=1e-30)).max()))
+            rec["share"] = rec["bound_ms"] / rec["device_ms"]
+            recs[name] = rec
+        del ck, cv
+        # a layer's chain between its attention calls, over int8 weights
+        mats = {"wqkv": (D, (H_ + 2 * KV_) * HD_), "wo": (H_ * HD_, D),
+                "wgu": (D, 2 * F_), "wd": (F_, D)}
+        w8 = {n: torch.randint(-127, 128, (L_, *kn), generator=g, device=dev, dtype=torch.int8)
+              for n, kn in mats.items()}
+        wsc = {n: torch.rand(L_, kn[1], generator=g, device=dev) * 2e-3 + 1e-4
+               for n, kn in mats.items()}
+        ck, cv = rnd(L_, rows, KV_, S_, HD_), rnd(L_, rows, KV_, S_, HD_)
+        attn = rnd(rows, 1, H_ * HD_)
+
+        def mm(h, n, i):
+            return ig.int8_gemv(h, w8[n][i], wsc[n][i])
+
+        def fused_layer(i):
+            h = dt.add_rmsnorm(x, d, ws[i % L_], eps)
+            dt.rope_kv_write(mm(h, "wqkv", i % L_), lengths, inv, ck, cv, i % L_)
+            h = dt.add_rmsnorm(x, mm(attn, "wo", i % L_), ws[i % L_], eps)
+            return mm(dt.swiglu(mm(h, "wgu", i % L_), F_), "wd", i % L_)
+
+        def plain_layer(i):
+            xx = x + d
+            h = tl.rmsnorm(xx, ws[i % L_], eps)
+            dt.rope_kv_write_plain(*split(mm(h, "wqkv", i % L_)), lengths, inv, ck, cv, i % L_)
+            xx = xx + mm(attn, "wo", i % L_)
+            h = tl.rmsnorm(xx, ws[i % L_], eps)
+            return mm(dt.swiglu_plain(mm(h, "wgu", i % L_), F_), "wd", i % L_)
+
+        layer_bytes = sum(k * n for k, n in mats.values()) + sum(bytes_.values()) + 2 * rows * D
+        recs["layer"] = dict(device_ms=graph_ms(fused_layer, L_, 5),
+                             plain_ms=graph_ms(plain_layer, L_, 5),
+                             bound_ms=layer_bytes / 3.35e9, launches=kernel_launches(fused_layer),
+                             plain_launches=kernel_launches(plain_layer))
+        recs["layer"]["share"] = recs["layer"]["bound_ms"] / recs["layer"]["device_ms"]
+        del w8, wsc, ck, cv
+        torch.cuda.empty_cache()
+        out[model] = dict(rows=rows, layers=L_, **recs)
+    return out
+
+
 def main() -> None:
     import sys
 
@@ -557,6 +715,20 @@ def main() -> None:
                   f"{r['pair_ms'] * 1e3:.2f} us dependent, {r['pair_nodep_ms'] * 1e3:.2f} us not",
                   flush=True)
         print(json.dumps({"card": torch.cuda.get_device_name(0), "w8a8": shapes}), flush=True)
+        return
+    if sys.argv[1:2] == ["trunk"]:
+        shapes = trunk_timings(torch, dev, sys.argv[2:] or None)
+        for model, recs in shapes.items():
+            for name, r in recs.items():
+                if not isinstance(r, dict):
+                    continue
+                print(f"trunk {model} {name}: {r['device_ms'] * 1e3:.2f} us, bound "
+                      f"{r['bound_ms'] * 1e3:.3f} us ({100 * r['share']:.1f}%), host "
+                      f"{r.get('host_us', float('nan')):.1f} us, plain {r['plain_ms'] * 1e3:.2f} "
+                      f"us; launches {r['launches']:.1f} / plain {r['plain_launches']:.1f}; "
+                      f"equal {r.get('equal_share')}, max rel err {r.get('max_rel_err')}",
+                      flush=True)
+        print(json.dumps({"card": torch.cuda.get_device_name(0), "trunk": shapes}), flush=True)
         return
     if sys.argv[1:] == ["prefill"]:
         fails = []

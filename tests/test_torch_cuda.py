@@ -13,7 +13,10 @@ Tolerances: a bf16 kernel output against an fp32 twin,
 order); the int8 GEMV against its bf16 twin, 2**-6 |ref| + 1e-3 (the twin
 rounds three times to bf16: the product, the scale and the scaled output;
 the kernel once: up to about two bf16 ulps apart); the w8a8 kernels none
-(every step is exact or correctly rounded)."""
+(every step is exact or correctly rounded); the decode trunk's kernels
+none for the residual add, the v rows and SwiGLU (they round where the
+PyTorch ops do), one bf16 ulp for the norm (its sum of squares in another
+order) and for RoPE (cosf and sinf against PyTorch's)."""
 import importlib
 
 import pytest
@@ -22,10 +25,12 @@ import torch
 import chip_smoke
 from project_morpheus_tpu_torch.model import hf_weights as hw
 from project_morpheus_tpu_torch.model.llama import init_llama_params
+from project_morpheus_tpu_torch.ops import decode_trunk as dt
 from project_morpheus_tpu_torch.ops import int8_gemv as ig
 from project_morpheus_tpu_torch.ops import prefill_attention as pa
 from project_morpheus_tpu_torch.ops import w8a8_gemm as wg
 from project_morpheus_tpu_torch.tools import graph_check as gc
+from project_morpheus_tpu_torch.tools import time_kernels as tk
 
 # the package exports the function under the module's name
 da = importlib.import_module("project_morpheus_tpu_torch.ops.decode_attention")
@@ -663,3 +668,212 @@ def test_w8a8_leaf_without_k_major_copy_raises(cuda):
     got = matmul_w8a8(h.to(cuda), {n: t[1] for n, t in lp.items()})
     want = matmul_w8a8(h, {n: t[1] for n, t in w.items()})
     assert torch.equal(got.cpu(), want)
+
+
+def _within_bf16_ulp(got, want) -> bool:
+    """|got - want| <= one bf16 ulp of ``want`` (8 significant bits)."""
+    g, w = got.float(), want.float()
+    return bool(torch.all((g - w).abs() <= 2.0**-7 * w.abs()))
+
+
+def _trunk_inputs(cuda, model: str, rows: int, layers: int = 2, seed: int = 0):
+    """Random inputs of the three trunk kernels at ``model``'s widths
+    (``tk.TRUNK_CONFIGS``), ``rows`` slots at positions 0, S - 1 and random
+    ones of an 8,192-position bf16 cache."""
+    cfg = tk.trunk_config(model)
+    D, F_, H, KV, HD, S = (cfg.hidden_size, cfg.intermediate_size, cfg.num_heads,
+                           cfg.num_kv_heads, cfg.head_dim, 8192)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=cuda) * scale).to(bf)
+
+    lengths = torch.randint(0, S, (rows,), generator=g, device=cuda, dtype=torch.int32)
+    lengths[0] = S - 1
+    if rows > 1:
+        lengths[1] = 0
+    from project_morpheus_tpu_torch.model.llama import rope_inv_freqs
+
+    return dict(D=D, F=F_, H=H, KV=KV, HD=HD, x=rnd(rows, 1, D), d=rnd(rows, 1, D),
+                w=(torch.rand(D, generator=g, device=cuda) + 0.5).to(bf),
+                qkv=rnd(rows, 1, (H + 2 * KV) * HD, scale=3.0), lengths=lengths,
+                inv=rope_inv_freqs(cfg, cuda), k=rnd(layers, rows, KV, S, HD),
+                v=rnd(layers, rows, KV, S, HD), gu=rnd(rows, 1, 2 * F_, scale=4.0))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("rows", [1, 8, 16])
+@pytest.mark.parametrize("model", sorted(tk.TRUNK_CONFIGS))
+def test_trunk_kernels_match_twins(cuda, model, rows):
+    """The three trunk kernels against their plain twins at the widths of
+    SmolLM2-1.7B (HD 64, G 1), Mistral-7B (128, 4) and Orpheus-3B (128, 3):
+    the residual add, v and SwiGLU bit for bit, the norm, q and k within a
+    bf16 ulp; the cache's written rows (positions 0 and S - 1 among them)
+    as the twin's, every other byte of both caches untouched."""
+    t = _trunk_inputs(cuda, model, rows, seed=rows)
+    dt.reset_launch_counts()
+    xk = t["x"].clone()
+    h = dt.add_rmsnorm(xk, t["d"], t["w"], 1e-5)
+    xp, hp = dt.add_rmsnorm_plain(t["x"], t["d"], t["w"], 1e-5)
+    h0 = dt.add_rmsnorm(t["x"], None, t["w"], 1e-6)
+    _, h0p = dt.add_rmsnorm_plain(t["x"], None, t["w"], 1e-6)
+    caches = {n: (t[n], t[n].clone(), t[n].clone()) for n in ("k", "v")}  # kernel, twin, before
+    q = dt.rope_kv_write(t["qkv"], t["lengths"], t["inv"], caches["k"][0], caches["v"][0], 1)
+    qp = dt.rope_kv_write_plain(*dt.split_qkv(t["qkv"], t["KV"], t["HD"]), t["lengths"],
+                                t["inv"], caches["k"][1], caches["v"][1], 1)
+    act = dt.swiglu(t["gu"], t["F"])
+    actp = dt.swiglu_plain(t["gu"], t["F"])
+    torch.cuda.synchronize()
+    assert dt.LAUNCHES == {"add_rmsnorm": 2, "rope_kv_write": 1, "swiglu": 1}
+    assert torch.equal(xk, xp) and _within_bf16_ulp(h, hp) and _within_bf16_ulp(h0, h0p)
+    assert q.shape == (rows, t["H"], t["HD"]) and _within_bf16_ulp(q, qp)
+    b, p = torch.arange(rows, device=cuda), t["lengths"].long()
+    assert _within_bf16_ulp(caches["k"][0][1, b, :, p], caches["k"][1][1, b, :, p])
+    assert torch.equal(caches["v"][0][1, b, :, p], caches["v"][1][1, b, :, p])
+    for got, _, before in caches.values():
+        got[1, b, :, p] = before[1, b, :, p]
+        assert torch.equal(got, before)
+    assert act.shape == (rows, 1, t["F"]) and torch.equal(act, actp)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("model", ["smollm2-1.7b", "mistral-7b-v0.3"])
+def test_trunk_kernels_same_bits_eager_and_replayed(cuda, model):
+    """The three kernels in a row give the same bits eagerly and replayed
+    from a captured CUDA graph (the norm's sum in a fixed order)."""
+    t = _trunk_inputs(cuda, model, 8, seed=5)
+    x0 = t["x"].clone()
+
+    def chain():
+        t["x"].copy_(x0)
+        h = dt.add_rmsnorm(t["x"], t["d"], t["w"], 1e-5)
+        q = dt.rope_kv_write(t["qkv"], t["lengths"], t["inv"], t["k"], t["v"], 0)
+        return h, q, dt.swiglu(t["gu"], t["F"]), t["x"]
+
+    eager = [o.clone() for o in chain()]
+    k_rows = t["k"][0, torch.arange(8, device=cuda), :, t["lengths"].long()].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chain()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = chain()
+    for _ in range(3):
+        t["k"].zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(eager, captured))
+        assert torch.equal(t["k"][0, torch.arange(8, device=cuda), :, t["lengths"].long()],
+                           k_rows)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("model", sorted(tk.TRUNK_CONFIGS))
+def test_rope_kv_write_past_the_capacity_writes_nothing(cuda, model):
+    """A slot at position S (and one past it) gets its q rotated but no
+    K/V row: its slot of both caches is untouched, where the twin's
+    indexed write would raise; the other slots are written as the twin
+    writes them.  The decode step's callers keep lengths below S
+    (``model/llama.py``); the attention clamps its length to S."""
+    t = _trunk_inputs(cuda, model, 8, seed=11)
+    S = t["k"].shape[3]
+    lengths = t["lengths"].clone()
+    lengths[0], lengths[2] = S, S + 7
+    ok = torch.tensor([b not in (0, 2) for b in range(8)], device=cuda)
+    before = {n: t[n].clone() for n in ("k", "v")}
+    q = dt.rope_kv_write(t["qkv"], lengths, t["inv"], t["k"], t["v"], 1)
+    twin = {n: before[n][:, ok].clone() for n in ("k", "v")}
+    dt.rope_kv_write_plain(*dt.split_qkv(t["qkv"][ok], t["KV"], t["HD"]), lengths[ok], t["inv"],
+                           twin["k"], twin["v"], 1)
+    torch.cuda.synchronize()
+    from project_morpheus_tpu_torch.model.llama import apply_rope
+
+    qs = dt.split_qkv(t["qkv"], t["KV"], t["HD"])[0]
+    assert _within_bf16_ulp(q, apply_rope(qs, lengths[:, None], t["inv"])[:, 0])
+    for n in ("k", "v"):
+        assert torch.equal(t[n][:, ~ok], before[n][:, ~ok])
+        assert _within_bf16_ulp(t[n][:, ok], twin[n])
+
+
+def _written_and_rest(cache, written):
+    """fp32 K and V at the positions ``written`` ``(B, S)`` marks (int8
+    codes times their scales), and every other byte of the cache."""
+    if "scale" in cache:
+        L, B, S, _ = cache["k"].shape
+        KV = cache["scale"].shape[-1] // 2
+        m = written[None].expand(L, B, S)
+        deq = [cache[n].view(L, B, S, KV, -1).float() * cache["scale"][..., j * KV:(j + 1) * KV,
+                                                                        None]
+               for j, n in enumerate(("k", "v"))]
+        rows = torch.cat([d[m].flatten() for d in deq])
+        return rows, [cache[n][~m] for n in ("k", "v", "scale")]
+    L, B, KV, S, _ = cache["k"].shape
+    m = written[None, :, None].expand(L, B, KV, S)
+    return (torch.cat([cache[n][m].float().flatten() for n in ("k", "v")]),
+            [cache[n][~m] for n in ("k", "v")])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("cache_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("rows", [8, 16])
+@pytest.mark.parametrize("model", sorted(tk.TRUNK_CONFIGS))
+def test_fused_decode_step_matches_plain_step(cuda, monkeypatch, model, rows, cache_dtype):
+    """A decode step through the trunk kernels against the plain-op step
+    (``decode_trunk_parts`` forced off), int8 fused weights and the
+    attention kernels, as served: on a bf16 cache all three kernels, on an
+    int8 cache (Orpheus-3B's default) the add + norm and SwiGLU around the
+    plain RoPE and quantized writes.  Three steps, logits within 4e-2 of
+    the largest |logit| (the bound of ``tests/test_torch_llama.py::
+    test_kernel_branch_matches_dense_in_bf16``: the norm's and RoPE's ulps
+    knock on through the bf16 activations), the rows the steps wrote into
+    the cache within 4e-2 of their largest |value| and every other byte of
+    it equal; per step the kernels launch 2L + 1, L (bf16 cache) or 0 and
+    L times, the plain step not at all."""
+    from project_morpheus_tpu_torch.model import llama as tl
+    from project_morpheus_tpu_torch.model.quant import fuse_layer_weights, quantize_params_int8
+
+    L, S, steps = 2, 4096, 3
+    int8 = cache_dtype == "int8"
+    cfg = tk.trunk_config(model, num_layers=L, vocab_size=1024, max_seq_len=S)
+    params = fuse_layer_weights(quantize_params_int8(
+        tl.init_llama_params(cfg, 3, cuda, torch.bfloat16)))
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    cache = tl.init_kv_cache(cfg, rows, S, torch.int8 if int8 else torch.bfloat16, cuda)
+    for n, c in cache.items():
+        if c.dtype == torch.int8:
+            c.copy_(torch.randint(-127, 128, c.shape, generator=g, device=cuda, dtype=torch.int8))
+        elif n == "scale":
+            c.copy_(torch.rand(c.shape, generator=g, device=cuda) * 0.02 + 0.002)
+        else:
+            c.copy_(torch.randn(c.shape, generator=g, device=cuda).to(c.dtype))
+    parts = (True, not int8, True)
+    assert tl.decode_trunk_parts(params, cfg, cache, rows) == parts
+    lengths0 = torch.randint(0, S - 96, (rows,), generator=g, device=cuda, dtype=torch.int32)
+    toks0 = torch.randint(3, 1000, (rows,), generator=g, device=cuda)
+    written = torch.zeros(rows, S, dtype=torch.bool, device=cuda)
+    for s in range(steps):
+        written[torch.arange(rows, device=cuda), lengths0.long() + s] = True
+    out = {}
+    for fused in (True, False):
+        if not fused:
+            monkeypatch.setattr(tl, "decode_trunk_parts", lambda *a: (False, False, False))
+        c = {n: t.clone() for n, t in cache.items()}
+        lengths, logits = lengths0.clone(), []
+        for _ in range(steps):
+            dt.reset_launch_counts()
+            logits.append(tl.llama_decode_step(params, toks0, cfg, c, lengths,
+                                               attn_impl="kernel"))
+            torch.cuda.synchronize()
+            want = ({"add_rmsnorm": 2 * L + 1, "rope_kv_write": L * parts[1], "swiglu": L}
+                    if fused else {"add_rmsnorm": 0, "rope_kv_write": 0, "swiglu": 0})
+            assert dt.LAUNCHES == want
+            lengths = lengths + 1
+        out[fused] = logits, _written_and_rest(c, written)
+    for a, b in zip(out[True][0], out[False][0]):
+        assert torch.all((a - b).abs() <= 4e-2 * b.abs().max()), (a - b).abs().max()
+    (wf, rest_f), (wp, rest_p) = out[True][1], out[False][1]
+    assert torch.all((wf - wp).abs() <= 4e-2 * wp.abs().max()), (wf - wp).abs().max()
+    assert all(torch.equal(a, b) for a, b in zip(rest_f, rest_p))

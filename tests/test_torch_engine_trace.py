@@ -6,7 +6,7 @@ contiguous and sum to its submit-to-first-hop interval, which lies inside
 the client's own; loop spans nest; a frame program's marks, taken on the
 host clock here, give stages that sum to its first-to-last mark; the lane
 counters equal the tokens routed and steps x ``max_slots``, and the
-attention counters count every frame under its path.  The card's
+attention and trunk counters count every frame under its path.  The card's
 side (timestamps written inside a captured graph) is in
 ``tests/test_torch_cuda.py``."""
 import asyncio
@@ -36,21 +36,21 @@ LOOP_SPANS = {"engine.turn", "engine.admit", "engine.gate", "engine.dispatch",
               "engine.flush_audio", "engine.park"}
 
 
-def _engine(**kw):
+def _engine(dtype=torch.float32, **kw):
     cfg = LlamaConfig.tiny()
     ecfg = EngineConfig(max_slots=2, max_seq_len=256, prefill_buckets=(16, 32), prefill_chunk=16,
                         context_buckets=(64, 128, 256), steps_per_sync=STEPS,
                         banded_sampling=True, default_stop_ids=(), **kw)
     snac = init_snac_params(SNACConfig.tiny(), seed=1, device="cpu")
-    return OrpheusEngine(init_llama_params(cfg, 3, "cpu", torch.float32), cfg, ecfg,
+    return OrpheusEngine(init_llama_params(cfg, 3, "cpu", dtype), cfg, ecfg,
                          codec=(snac, SNACConfig.tiny()), device="cpu")
 
 
-def _serve(trace: bool):
+def _serve(trace: bool, dtype=torch.float32):
     """Serve ``PROMPTS`` greedily in audio mode (four requests, two slots:
-    two of them queue); returns (engine, [(request, tokens, pcm, client
-    ns of the first hop)])."""
-    eng = _engine()
+    two of them queue) from weights in ``dtype``; returns (engine,
+    [(request, tokens, pcm, client ns of the first hop)])."""
+    eng = _engine(dtype)
     if trace:
         eng.start_trace()
 
@@ -147,8 +147,21 @@ def test_lane_counters_equal_the_tokens_routed(traced):
     # each request's first token comes from its prefill, the rest from frames
     assert c["lanes_emitted"] == sum(len(t) - 1 for _, t, _, _ in served) > 0
     assert len(eng.trace.frames) == eng.steps // STEPS
-    # on the CPU "auto" resolves to the dense branch for every frame
+    # on the CPU "auto" resolves to the dense branch for every frame; fp32
+    # activations keep the trunk's plain ops
     assert c["attn_dense_frames"] == eng.steps // STEPS and c["attn_kernel_frames"] == 0
+    assert c["trunk_plain_frames"] == eng.steps // STEPS and c["trunk_kernel_frames"] == 0
+
+
+def test_trunk_counters_count_the_kernel_path_in_bf16():
+    """bf16 weights and cache: every frame dispatched runs the trunk's
+    wrappers (their twins on the CPU), and the trace counts it so."""
+    eng, served = _serve(True, torch.bfloat16)
+    c = eng.trace.counters
+    assert all(len(t) == FRAMES * 7 for _, t, _, _ in served)
+    assert eng._trunk_path() == "kernel"
+    assert c["trunk_kernel_frames"] == eng.steps // STEPS > 0 and c["trunk_plain_frames"] == 0
+    assert c["attn_dense_frames"] == eng.steps // STEPS
 
 
 @pytest.mark.parametrize("audio,k", [(True, 1), (True, 2), (False, 1)])
